@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero):
+
+1. device: require CUDA; print the card's name and power limit as
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+   them; turn TF32 off for the plaintext reference forward;
+2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   per source, in parallel) and print the build time;
+3. kernels: call each kernel's wrapper on CUDA tensors at the shapes the
+   main path gives it, require it to equal its plain PyTorch version
+   exactly, and time both with CUDA events (median over trials); read the
+   ring_matmul kernel's IMAD count from its SASS;
+4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
+   10 classes, seeded random weights at the reference's init scales), 4
+   requests as sibling streams through ``api.compile`` and
+   ``PrivateModel.__call__``, under the exact plan and under the reduced
+   plan ((k, m) = (21, 13) on every ReLU group but the last, which is
+   culled).  Launch counters are zeroed just before each run and read just
+   after; every kernel must have launched.  Measured fused rounds and bytes
+   must equal ``plan.schedule(streams=4)``; the exact plan's revealed
+   logits must match the plaintext forward within the stated tolerance;
+5. stem breakdown: the exact plan's stem layer for 4 requests timed by
+   part (conv, triples, protocol), and the device's busy share of one
+   traced run of it.
+
+Output: a ``{"kernels": [...]}`` line, then as the last line
+``{"ok": true, "device": {...}}``.  The full record also goes to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM peaks (NVIDIA data sheet; the Hopper white paper for the SM).
+HBM_BYTES_PER_S = 3.35e12
+# int32 multiply-adds: 64 per clock per SM x 132 SMs x 1.98 GHz boost.
+IMAD_PER_S = 64 * 132 * 1.98e9
+# The least 32-bit IMAD issue slots one 64x32-bit multiply-add mod 2^64
+# needs: with w biased by 2^31 to be unsigned, IMAD.WIDE.U32 (x_lo * w' into
+# the 64-bit sum, two slots) + IMAD (x_hi * w' into the high word); the
+# bias is undone once per output row (-2^31 * sum_k x), not once per MAC.
+# The kernel's own count is read from its SASS (``sass_census``).
+IMAD_PER_MAC = 3
+
+STREAMS = 4
+# exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
+# per linear layer, amplified through 20 layers
+ATOL, RTOL = 5e-2, 1e-2
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _event_ms(run, trials: int) -> list:
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _graph_ms(fn, reps: int, trials: int) -> float:
+    """Median time of ``reps`` calls of ``fn`` captured in one CUDA graph
+    (the graph removes the host's per-call launch overhead)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return statistics.median(_event_ms(graph.replay, trials))
+
+
+def device_ms(fn, flush, trials: int = 7, reps: int = 10):
+    """(cold, hot) device time per call.  Cold: each call follows an L2
+    flush (a write of more than the 50 MB L2), and the flushes' own time is
+    subtracted; the kernels' inputs then come from device memory, as the
+    bound assumes.  Hot: back-to-back calls, inputs left in L2."""
+    with_flush = _graph_ms(lambda: (flush(), fn()), reps, trials)
+    flush_only = _graph_ms(flush, reps, trials)
+    return (with_flush - flush_only) / reps, _graph_ms(fn, reps, trials) / reps
+
+
+def eager_ms(fn, trials: int = 7, reps: int = 20) -> float:
+    """Per-call time of ``reps`` back-to-back eager calls (median over
+    trials): the host's wrapper and launch cost where it exceeds the
+    kernel's device time."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    return statistics.median(_event_ms(run, trials)) / reps
+
+
+def words(gen, *shape) -> torch.Tensor:
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                         dtype=torch.int64).to(torch.int32).cuda()
+
+
+def max_abs_err(got, want) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if not torch.equal(g, w):
+            raise AssertionError("kernel output differs from its plain version")
+    return err
+
+
+def sass_census() -> dict:
+    """IMAD issue slots per multiply-add in the compiled ring_matmul kernel,
+    read from its SASS (``cuobjdump -sass``).  A static count over the whole
+    kernel (prologue, tile loads and epilogue included) divided by the 256
+    multiply-adds of one unrolled K-slice (BK=16 x a 4x4 register tile)."""
+    import re
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    lib = build.build()["ring_matmul.cu"]
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    body = sass.split("Function :")
+    body = next(b for b in body[1:] if "ring_matmul_kernel" in b.splitlines()[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
+                     body)
+    imads = {}
+    for op in ops:
+        if op.startswith("IMAD"):
+            imads[op] = imads.get(op, 0) + 1
+    slots = sum(n * (2 if ".WIDE" in op else 1) for op, n in imads.items())
+    macs = 16 * 4 * 4
+    out = {"instructions": len(ops), "imad": imads, "imad_slots": slots,
+           "imad_slots_per_mac": slots / macs}
+    print(f"ring_matmul SASS: {len(ops)} instructions, IMAD {imads}, "
+          f"{slots} IMAD slots = {slots / macs:.2f} per multiply-add "
+          f"(the bound counts {IMAD_PER_MAC})", flush=True)
+    return out
+
+
+def kernel_phase():
+    """Each kernel against its plain version at main-path shapes."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(0)
+    n_el = 65536 * STREAMS                 # stem ReLU, 4 requests auto-batched
+    n_words = (n_el + 31) // 32
+    P = 2
+    rows, extra = [], []
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
+
+    def record(name, source, replaces, fn, plain, bytes_moved, ops_s=0.0,
+               shape="", into=rows):
+        err = max_abs_err(fn(), plain())
+        ms, hot_ms = device_ms(fn, scratch.zero_)
+        plain_ms, _ = device_ms(plain, scratch.zero_, trials=3, reps=3)
+        call_ms = eager_ms(fn)
+        bytes_s = bytes_moved / HBM_BYTES_PER_S
+        bound_s = max(bytes_s, ops_s)
+        into.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": 0, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                     "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                     "library_ms": None, "shape": shape, "hot_ms": hot_ms,
+                     "eager_call_ms": call_ms})
+        print(f"kernel {name} [{shape}]: {ms:.4f} ms on the device from DRAM "
+              f"({hot_ms:.4f} ms from L2, {call_ms:.4f} ms per eager call), "
+              f"plain {plain_ms:.4f} ms, "
+              f"bound {bound_s * 1e3:.4f} ms, max_abs_err {err}", flush=True)
+
+    for w, into in ((64, rows), (8, extra)):
+        sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
+        d, e, a, b, c = (words(gen, P, w, n_words) for _ in range(5))
+        record("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:45",
+               lambda: ops.beaver_and(d, e, a, b, c, sel),
+               lambda: ref.beaver_and(d, e, a, b, c, sel),
+               (6 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words}",
+               into=into)
+        g, p = words(gen, P, w, n_words), words(gen, P, w, n_words)
+        a2, b2 = words(gen, P, 2 * w, n_words), words(gen, P, 2 * w, n_words)
+        record("ks_mask", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:73",
+               lambda: ops.ks_mask(g, p, a2, b2, 1),
+               lambda: ref.ks_mask(g, p, a2, b2, 1),
+               40 * P * w * n_words, shape=f"P={P} w={w} W={n_words} shift=1",
+               into=into)
+        dd, ee, c2 = (words(gen, P, 2 * w, n_words) for _ in range(3))
+        opened = words(gen, P, 2, 2 * w, n_words)   # the received round buffer
+        record("ks_combine", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:105",
+               lambda: ops.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2,
+                                      c2, sel, g),
+               lambda: ref.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2,
+                                      c2, sel, g),
+               68 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words}",
+               into=into)
+    # stage-1 conv: each request's stream runs its own convs, so the main
+    # path's M is parties x 32 x 32; the 4 requests stacked (M x 4) ride along
+    for m, into in ((P * 1024, rows), (P * STREAMS * 1024, extra)):
+        k, n = 64 * 9, 64
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
+                          dtype=torch.int64).cuda()
+        wt = torch.randint(-2 ** 20, 2 ** 20, (k, n), generator=gen,
+                           dtype=torch.int32).cuda()
+        record("ring_matmul", "src/repro_torch/csrc/ring_matmul.cu",
+               "src/repro/kernels/ring_matmul.py:88",
+               lambda: ops.ring_matmul(x, wt), lambda: ref.ring_matmul(x, wt),
+               m * k * 8 + k * n * 4 + m * n * 8,
+               ops_s=m * n * k * IMAD_PER_MAC / IMAD_PER_S,
+               shape=f"M={m} K={k} N={n}", into=into)
+    return rows, extra
+
+
+def main_path_phase():
+    """Full-width ResNet-18, 4 sibling streams, exact and reduced plans."""
+    from repro_torch import api
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import comm as comm_lib, prng
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+
+    cfg = RESNET18
+    params = resnet.init(cfg, seed=0, device="cuda")
+    plaintext = resnet.ResNet(params, cfg)
+    plan_exact = resnet.trace(params, cfg, batch=1)
+    plan_reduced = plan_exact.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (plan_exact.n_groups - 1)
+              + [HBLayer(k=13, m=13)]), plan_exact.group_elements))
+    gen = torch.Generator().manual_seed(1)
+    xs = [(torch.rand((1, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2 - 1).cuda()
+          for _ in range(STREAMS)]
+    with torch.no_grad():
+        want = torch.cat([plaintext(x) for x in xs])
+
+    def afn(p, x, relu_fn=None):
+        return resnet.apply(p, x, cfg, relu_fn=relu_fn)
+
+    runs, launches = {}, {}
+    for name, plan in (("exact", plan_exact), ("reduced", plan_reduced)):
+        cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+        model = api.compile(afn, params, cfg, plan,
+                            api.Session(key=0, comm=cc, device="cuda"))
+        enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), x)
+               for i, x in enumerate(xs)]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = model(enc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        sched = plan.schedule(streams=STREAMS)
+        if (cc.n_rounds, cc.bytes_tx) != (sched.n_rounds, sched.bytes_tx):
+            raise AssertionError(
+                f"{name}: measured {cc.n_rounds} rounds / {cc.bytes_tx} B != "
+                f"schedule {sched.n_rounds} / {sched.bytes_tx}")
+        got = torch.cat([o.reveal() for o in outs])
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        if name == "exact" and err > ATOL + RTOL * float(want.abs().max()):
+            raise AssertionError(f"exact plan: max error {err} vs plaintext")
+        for k, v in counts.items():
+            launches.setdefault(k, {})[name] = v
+        runs[name] = {"wall_s": wall, "rounds": cc.n_rounds,
+                      "bytes": cc.bytes_tx, "max_abs_err_vs_plaintext": err,
+                      "launches": counts}
+        print(f"main path {name}: {wall:.3f} s per call ({STREAMS} requests), "
+              f"{cc.n_rounds} rounds, {cc.bytes_tx} B, launches {counts}, "
+              f"max |reveal - plaintext| {err:.3g} "
+              f"(max |logit| {float(want.abs().max()):.3g})", flush=True)
+    return runs, launches
+
+
+def trace_busy(prof):
+    """(busy us, span us, device ops) of one profiler trace: the union of
+    the device's kernel, memcpy and memset intervals, and the span from the
+    trace's first event to its last."""
+    path = os.path.join(ROOT, "build", "stem_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.remove(path)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    timed = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in events if e.get("ph") == "X"]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                    for e in events if e.get("ph") == "X"
+                    and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        raise AssertionError("the profiler traced no device activity")
+    busy, (start, end) = 0.0, device[0]
+    for a, b in device[1:]:
+        if a > end:
+            busy += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += end - start
+    span = max(b for _, b in timed) - min(a for a, _ in timed)
+    return busy, span, len(device)
+
+
+def stem_breakdown_phase():
+    """Where the time of one ReLU layer goes: the exact plan's stem layer
+    (conv + ReLU) for 4 requests, timed by part on the host clock around
+    synchronised work, then once more under torch.profiler for the device's
+    busy share of that one traced run (the profiler slows the host, so the
+    share is likely below the unprofiled run's)."""
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import beaver, comm as comm_lib, gmw, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.models import resnet
+
+    params = resnet.init(RESNET18, seed=0, device="cuda")
+    w, b = resnet.fold_bn(params["stem"], params["bn_stem"])
+    gen = torch.Generator().manual_seed(2)
+    xs = [MPCTensor.from_plain(prng.PRNGKey(200 + i, "cuda"),
+                               (torch.rand((1, 3, 32, 32), generator=gen) * 2 - 1).cuda())
+          for i in range(STREAMS)]
+    keys = [prng.PRNGKey(300 + i, "cuda") for i in range(STREAMS)]
+    n = RESNET18.widths[0] * 32 * 32
+
+    def conv():
+        return [x.conv2d_public(w, 1, 1).add_public(b[:, None, None]) for x in xs]
+
+    def triples():
+        return [beaver.gen_relu_triples(k, n, 64) for k in keys]
+
+    def protocol(hs, tris):
+        return gmw.relu_many(keys, [h.data.reshape(2, n) for h in hs], tris,
+                             comm_lib.CoalescingComm(), [(64, 0)] * STREAMS)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    protocol(conv(), triples())                     # warm-up
+    hs, t_conv = timed(conv)
+    tris, t_triples = timed(triples)
+    _, t_protocol = timed(protocol, hs, tris)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        protocol(conv(), triples())
+        torch.cuda.synchronize()
+    busy_us, span_us, n_kernels = trace_busy(prof)
+    out = {"conv_s": t_conv, "triples_s": t_triples, "protocol_s": t_protocol,
+           "profiled_span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
+           "device_kernels": n_kernels, "device_busy_share": busy_us / span_us}
+    print(f"stem layer, 4 requests: conv {t_conv:.4f} s, triples "
+          f"{t_triples:.4f} s, protocol {t_protocol:.4f} s; under the "
+          f"profiler: {n_kernels} device ops busy {busy_us / 1e6:.4f} s of a "
+          f"{span_us / 1e6:.4f} s trace = {100 * busy_us / span_us:.1f}%",
+          flush=True)
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from repro_torch.kernels import build    # the port must be beside us
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"build: {build.build_all():.1f} s", flush=True)
+
+    rows, extra = kernel_phase()
+    sass = sass_census()
+    runs, launches = main_path_phase()
+    breakdown = stem_breakdown_phase()
+    for row in rows + extra:     # launches: the exact plan's run; both beside
+        row["launches"] = launches[row["name"]]["exact"]
+        row["launches_by_path"] = launches[row["name"]]
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump({"nvidia_smi": smi, "device": device, "kernels": rows,
+                   "kernels_other_shapes": extra, "ring_matmul_sass": sass,
+                   "main_path": runs,
+                   "stem_breakdown": breakdown}, f, indent=1)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": device}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,17 @@
+"""repro_torch: HummingBird private inference in PyTorch with CUDA kernels
+for Hopper, a port of the JAX package ``repro`` (which stays the reference).
+
+Same layout as the reference, so each module names its twin:
+
+  core/     ring (Z/2^64 as int64), prng (jax-identical threefry), fixed,
+            shares, comm, beaver, gmw (round-fused engine), ring_linalg,
+            mpc_tensor, plus the copied schedule/hummingbird/costmodel
+  kernels/  CUDA kernels (``csrc/``) behind ``ops`` wrappers, their plain
+            PyTorch versions (``ref``) and the build (``build``)
+  api/      Plan, Session, compile -> PrivateModel
+  models/   ResNet (plaintext forward + registered MPC forward)
+  configs/  ResNet configs
+
+Entry points run on the GPU unless given ``device="cpu"``: ``device=None``
+means CUDA and raises without a card (``device.resolve``).
+"""

@@ -1,0 +1,233 @@
+"""Plan: the offline artifact of HummingBird private inference (twin of the
+reference's ``api/plan.py``).
+
+A Plan records what the online phase replays: the model's ReLU call sites
+in call order (element count, group, shape), the per-group HummingBird
+(k, m) assignment, and whether the cone-pruned adder is used.  Its JSON
+and ``digest()`` are byte-identical to the reference's for the same model,
+so the two packages agree on which network they run.  ``trace_plan`` runs
+the plaintext torch forward on the ``meta`` device (the reference uses
+``jax.eval_shape``): shapes only, no data, no compute.
+
+Secret-by-secret product sites (the reference's ``opens``, used by its LM
+slice) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import math
+import pathlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .. import errors
+from ..core import schedule as schedule_lib
+from ..core.costmodel import CommCost
+from ..core.hummingbird import HBConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ReluCall:
+    """One ReLU call site: element count, (k, m) group, shape (no party dim)."""
+
+    n_elements: int
+    group: int
+    shape: Tuple[int, ...]
+
+    def to_json(self) -> Dict:
+        return {"n_elements": self.n_elements, "group": self.group,
+                "shape": list(self.shape)}
+
+    @staticmethod
+    def from_json(d: Dict) -> "ReluCall":
+        return ReluCall(int(d["n_elements"]), int(d["group"]),
+                        tuple(int(s) for s in d["shape"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Network plan: ReLU call trace + per-group HummingBird assignment."""
+
+    calls: Tuple[ReluCall, ...]
+    hb: HBConfig
+    input_shape: Tuple[int, ...] = ()
+    cone: bool = False
+    name: str = ""
+
+    # -- derived views --------------------------------------------------------
+    @property
+    def n_groups(self) -> int:
+        return self.hb.n_groups
+
+    @property
+    def group_elements(self) -> Tuple[int, ...]:
+        return self.hb.group_elements
+
+    def with_hb(self, hb: HBConfig) -> "Plan":
+        """Same trace, new (k, m) assignment."""
+        assert hb.n_groups == self.hb.n_groups, (hb.n_groups, self.hb.n_groups)
+        return dataclasses.replace(self, hb=hb)
+
+    def triple_specs(self) -> Tuple[Tuple[int, int], ...]:
+        """(n_elements, width) per ReLU call."""
+        return tuple((c.n_elements, self.hb.layers[c.group].width)
+                     for c in self.calls)
+
+    def call_specs(self) -> Tuple[Tuple[int, int, Tuple[int, int, int]], ...]:
+        """``(n_elements, width, (n_elements, k, m))`` per ReLU call: one
+        ``core.schedule.simulate`` spec with its auto-batch key."""
+        specs = []
+        for c in self.calls:
+            layer = self.hb.layers[c.group]
+            specs.append((c.n_elements, layer.width,
+                          (c.n_elements, layer.k, layer.m)))
+        return tuple(specs)
+
+    # -- analytics ------------------------------------------------------------
+    def schedule(self, streams: int = 1,
+                 auto_batch: bool = True) -> schedule_lib.Schedule:
+        """Fused-round timeline of one replay over ``streams`` sibling
+        streams: one ``relu_many`` lockstep per call; sequential calls
+        never share rounds, so per-call schedules compose with ``+``."""
+        if not self.calls and self.n_groups:
+            raise ValueError("cost/schedule need a traced plan (trace_plan)")
+        total = schedule_lib.Schedule.empty()
+        for spec in self.call_specs():
+            total = total + schedule_lib.simulate(
+                [spec] * streams, cone=self.cone, auto_batch=auto_batch)
+        return total
+
+    def cost(self, streams: int = 1, auto_batch: bool = True) -> CommCost:
+        """Closed-form ReLU communication of one replay (schedule totals)."""
+        sched = self.schedule(streams=streams, auto_batch=auto_batch)
+        return CommCost(sched.bytes_tx, sched.n_rounds, sched.phase_bytes())
+
+    # -- (de)serialization ----------------------------------------------------
+    def to_json(self) -> Dict:
+        return {"name": self.name, "input_shape": list(self.input_shape),
+                "cone": self.cone, "hb": self.hb.to_json(),
+                "calls": [c.to_json() for c in self.calls]}
+
+    @staticmethod
+    def from_json(d: Dict) -> "Plan":
+        if d.get("opens"):
+            raise errors.PlanInvalid(
+                "plans with secret-product opens are not supported yet")
+        return Plan(calls=tuple(ReluCall.from_json(c) for c in d["calls"]),
+                    hb=HBConfig.from_json(d["hb"]),
+                    input_shape=tuple(int(s) for s in d["input_shape"]),
+                    cone=bool(d["cone"]), name=str(d.get("name", "")))
+
+    def validate(self) -> "Plan":
+        """Static pre-flight of a loaded plan; raises ``errors.PlanInvalid``
+        on (k, m) outside 0 <= m <= k <= 64, a call naming a missing group
+        or disagreeing with its shape, group element drift, triple-spec
+        drift, or a composed schedule that differs from the per-call sum."""
+        hb = self.hb
+        if len(hb.layers) != len(hb.group_elements):
+            raise errors.PlanInvalid(
+                f"plan {self.name!r}: {len(hb.layers)} HB layers vs "
+                f"{len(hb.group_elements)} group element counts")
+        for g, layer in enumerate(hb.layers):
+            if not 0 <= layer.m <= layer.k <= 64:
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: group {g} has (k={layer.k}, "
+                    f"m={layer.m}) outside 0 <= m <= k <= 64")
+        per_group = [0] * self.n_groups
+        for i, c in enumerate(self.calls):
+            if not 0 <= c.group < self.n_groups:
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: call {i} references group "
+                    f"{c.group} but the HB config has {self.n_groups}")
+            if c.n_elements < 0 or c.n_elements != math.prod(c.shape):
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: call {i} claims {c.n_elements} "
+                    f"elements but shape {c.shape} has {math.prod(c.shape)}")
+            per_group[c.group] += c.n_elements
+        if self.calls and tuple(per_group) != tuple(self.group_elements):
+            raise errors.PlanInvalid(
+                f"plan {self.name!r}: per-call element sums {per_group} "
+                f"!= hb.group_elements {list(self.group_elements)}")
+        for i, ((n, w), c) in enumerate(zip(self.triple_specs(), self.calls)):
+            if n != c.n_elements or w != hb.layers[c.group].width \
+                    or not 0 <= w <= 64:
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: triple spec {i} is ({n}, {w})")
+        if self.calls:
+            total = self.schedule()
+            rounds = bytes_tx = 0
+            for spec in self.call_specs():
+                per_call = schedule_lib.simulate([spec], cone=self.cone)
+                rounds += per_call.n_rounds
+                bytes_tx += per_call.bytes_tx
+            if (total.n_rounds, total.bytes_tx) != (rounds, bytes_tx):
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: composed schedule "
+                    f"({total.n_rounds} rounds, {total.bytes_tx} B) != "
+                    f"per-call sum ({rounds} rounds, {bytes_tx} B)")
+        return self
+
+    def digest(self) -> str:
+        """Short stable content hash of the plan (canonical JSON)."""
+        blob = json.dumps(self.to_json(), sort_keys=True).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+    def save(self, path) -> None:
+        pathlib.Path(path).write_text(json.dumps(self.to_json(), indent=1))
+
+    @staticmethod
+    def load(path) -> "Plan":
+        """Load + statically validate a saved plan."""
+        try:
+            plan = Plan.from_json(json.loads(pathlib.Path(path).read_text()))
+        except (KeyError, ValueError, TypeError, AssertionError) as e:
+            raise errors.PlanInvalid(f"malformed plan file {path}: {e}") from e
+        return plan.validate()
+
+
+def _to_meta(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.to("meta")
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return tree
+
+
+def trace_plan(apply_fn, params, x, *, hb: Optional[HBConfig] = None,
+               n_groups: Optional[int] = None, cone: bool = False,
+               name: str = "") -> Plan:
+    """Shape-trace ``apply_fn(params, x, relu_fn=...)`` into a Plan.
+
+    ``x`` is an example input tensor or a plain shape tuple (float32).  The
+    forward runs on the ``meta`` device, so nothing is computed;
+    ``relu_fn(v, g)`` call sites are recorded in call order and ``hb``
+    defaults to the exact 64-bit assignment.
+    """
+    shape = tuple(int(s) for s in (x if isinstance(x, (tuple, list)) else x.shape))
+    calls = []
+
+    def tracing_relu(v, g):
+        calls.append(ReluCall(int(v.numel()), int(g), tuple(int(s) for s in v.shape)))
+        return v
+
+    apply_fn(_to_meta(params), torch.empty(shape, device="meta"),
+             relu_fn=tracing_relu)
+    n = n_groups if n_groups is not None else (
+        hb.n_groups if hb is not None
+        else (max(c.group for c in calls) + 1 if calls else 0))
+    elements = [0] * n
+    for c in calls:
+        elements[c.group] += c.n_elements
+    if hb is None:
+        hb = HBConfig.exact(elements)
+    else:
+        # keep the caller's (k, m) layers, always carry the traced counts
+        assert hb.n_groups == n, (hb.n_groups, n)
+        hb = HBConfig(hb.layers, tuple(elements))
+    return Plan(calls=tuple(calls), hb=hb, input_shape=shape, cone=cone,
+                name=name)

@@ -1,0 +1,170 @@
+"""Trusted-third-party Beaver triples and the triple providers.
+
+Triples are generated deterministically from a PRNG key, bit-identical to
+the reference's ``core/beaver.py`` for the same key (``core.prng`` is
+jax's threefry).  Shares carry the leading party dimension.  Arithmetic
+members are int64 ring tensors, binary members int32 packed words.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, List, Optional, Sequence
+
+import torch
+
+from .. import errors
+from . import prng, ring, shares
+from .schedule import n_levels
+
+
+@dataclasses.dataclass(frozen=True)
+class ArithTriple:
+    """Additive shares of (a, b, c = a*b) on Z/2^64, party dim leading."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BinTriple:
+    """XOR shares of packed-word (a, b, c = a & b), party dim leading."""
+
+    a: torch.Tensor
+    b: torch.Tensor
+    c: torch.Tensor
+
+    def __getitem__(self, idx) -> "BinTriple":
+        """Index every member (the dense per-level stack's leading L axis)."""
+        return BinTriple(self.a[idx], self.b[idx], self.c[idx])
+
+
+def gen_arith(key: torch.Tensor, shape, n_parties: int = 2) -> ArithTriple:
+    ka, kb, ksa, ksb, ksc = prng.split(key, 5)
+    a = ring.uniform(ka, shape)
+    b = ring.uniform(kb, shape)
+    return ArithTriple(shares.share(ksa, a, n_parties),
+                       shares.share(ksb, b, n_parties),
+                       shares.share(ksc, a * b, n_parties))
+
+
+def gen_bin(key: torch.Tensor, shape, n_parties: int = 2) -> BinTriple:
+    ka, kb, ksa, ksb, ksc = prng.split(key, 5)
+    a = prng.bits_words(ka, shape)
+    b = prng.bits_words(kb, shape)
+    return BinTriple(shares.xor_share_packed(ksa, a, n_parties),
+                     shares.xor_share_packed(ksb, b, n_parties),
+                     shares.xor_share_packed(ksc, a & b, n_parties))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReluTriples:
+    """Everything one approximate-ReLU evaluation consumes, pre-generated.
+
+    For E elements and a w-bit reduced ring (W = ceil(E/32) packed words,
+    L = ceil(log2(w)) Kogge-Stone levels):
+      - bin_init:   (P, w, W) AND triple for the initial generate plane
+      - bin_levels: (L, P, 2w, W) one batched AND triple per level
+      - b2a:        (P, E) arithmetic triple for the sign-bit B2A
+      - mult:       (P, E) arithmetic triple for the final x * DReLU(x)
+    """
+
+    bin_init: BinTriple
+    bin_levels: BinTriple
+    b2a: ArithTriple
+    mult: ArithTriple
+
+
+def _no_cone(cone: bool) -> None:
+    if cone:
+        raise NotImplementedError(
+            "the MSB-cone-pruned adder is not ported yet (see ROADMAP.md)")
+
+
+def gen_relu_triples(key: torch.Tensor, n_elements: int, w: int,
+                     n_parties: int = 2, cone: bool = False) -> ReluTriples:
+    """The dense adder's triples (``cone=True`` is not ported yet)."""
+    _no_cone(cone)
+    W = shares.packed_words(n_elements)
+    L = n_levels(w)
+    k1, k2, k3, k4 = prng.split(key, 4)
+    bin_init = gen_bin(k1, (w, W), n_parties)
+    levels = [gen_bin(k, (2 * w, W), n_parties) for k in prng.split(k2, max(L, 1))]
+    bin_levels = BinTriple(*(torch.stack([getattr(t, f) for t in levels])
+                             for f in ("a", "b", "c")))
+    return ReluTriples(bin_init, bin_levels,
+                       gen_arith(k3, (n_elements,), n_parties),
+                       gen_arith(k4, (n_elements,), n_parties))
+
+
+def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
+                        w: int, cone: bool = False) -> ReluTriples:
+    """Merge per-stream ReluTriples (same ring width w) into one bundle for
+    the element-wise concatenation of the streams: arithmetic members
+    concatenate on the element axis; packed binary members are repacked at
+    the bit level, because word boundaries shift when n_i is not a
+    multiple of 32 (tail padding bits pack to the all-zero triple)."""
+    _no_cone(cone)
+    if len(bundles) != len(n_list):
+        raise ValueError(f"concat_relu_triples: {len(bundles)} bundles vs "
+                         f"{len(n_list)} element counts")
+
+    def cat_bin(members: Sequence[BinTriple]) -> BinTriple:
+        def cat(field: str) -> torch.Tensor:
+            bits = [shares.unpack_bits(getattr(t, field), n)
+                    for t, n in zip(members, n_list)]
+            return shares.pack_bits(torch.cat(bits, dim=-1))
+        return BinTriple(cat("a"), cat("b"), cat("c"))
+
+    def cat_arith(members: Sequence[ArithTriple]) -> ArithTriple:
+        return ArithTriple(*(torch.cat([getattr(t, f) for t in members], dim=-1)
+                             for f in ("a", "b", "c")))
+
+    return ReluTriples(cat_bin([b.bin_init for b in bundles]),
+                       cat_bin([b.bin_levels for b in bundles]),
+                       cat_arith([b.b2a for b in bundles]),
+                       cat_arith([b.mult for b in bundles]))
+
+
+# ---------------------------------------------------------------------------
+# Triple providers: who supplies the ReluTriples each protocol call consumes
+# ---------------------------------------------------------------------------
+
+class InlineTTP:
+    """Default provider: triples are derived inline from each protocol
+    call's PRNG key (returns None, as the reference's ``InlineTTP``)."""
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> None:
+        return None
+
+    def checkpoint(self) -> None:
+        return None
+
+    def rollback(self, token) -> None:
+        pass
+
+
+class TriplePool:
+    """Precomputed pool consumed in call order: one entry per ReLU call
+    per stream, call-major / stream-minor, None for culled or empty calls."""
+
+    def __init__(self, bundles: Iterable[Optional[ReluTriples]]):
+        self._bundles: List[Optional[ReluTriples]] = list(bundles)
+        self.consumed = 0
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> Optional[ReluTriples]:
+        if self.consumed >= len(self._bundles):
+            raise errors.TriplePoolExhausted(
+                f"TriplePool exhausted after {self.consumed} ReLU calls — "
+                "the pool must hold one bundle per ReLU call per stream")
+        tri = self._bundles[self.consumed]
+        self.consumed += 1
+        return tri
+
+    def checkpoint(self) -> int:
+        return self.consumed
+
+    def rollback(self, token: int) -> None:
+        self.consumed = token

@@ -1,0 +1,304 @@
+"""GMW protocol: A2B, DReLU, B2A, exact ReLU (Eq. 2) and HummingBird's
+reduced-ring approximate ReLU (Eq. 3), round-fused engine.
+
+Twin of the reference's ``core/gmw.py`` on the generator loop.  Every
+primitive is a round generator (``*_rounds``) that yields one wire payload
+per communication round and is sent the peer's payload back:
+
+  - A2B prep: each party XOR-shares its arithmetic share      (1 round)
+  - adder: initial AND + ceil(log2 w) batched ANDs            (1+L rounds)
+  - B2A of the sign bit: one Beaver mult on Z/2^64            (1 round)
+  - final x * DReLU(x): one Beaver mult on Z/2^64             (1 round)
+
+``drive`` runs one generator with one ``comm.swap`` per round;
+``run_streams`` / ``relu_many`` advance sibling generators in lockstep and
+coalesce each round into ONE exchange.  Round-local compute of the dense
+Kogge-Stone adder runs in the CUDA kernels of ``kernels/ops.py``
+(``beaver_and``, ``ks_mask``, ``ks_combine``).  Shares are bit-identical
+to the reference for the same keys, triples and inputs.
+
+The MSB-cone-pruned adder (``cone=True``) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..kernels import ops as kops
+from . import beaver, comm as comm_lib, prng, ring, schedule as schedule_lib, shares
+
+
+# ---------------------------------------------------------------------------
+# Round-generator drivers
+# ---------------------------------------------------------------------------
+
+def drive(gen, comm):
+    """Run one round generator to completion: one ``comm.swap`` per round."""
+    try:
+        payload = gen.send(None)
+        while True:
+            payload = gen.send(comm.swap(payload))
+    except StopIteration as e:
+        return e.value
+
+
+def run_streams(comm, streams: Sequence, on_round=None) -> List:
+    """Advance N round generators in lockstep, coalescing each round into
+    one exchange; streams that finish early drop out.  ``on_round(r)``
+    fires after fused round r.  Returns each stream's result, in order."""
+    cc = (comm if isinstance(comm, comm_lib.CoalescingComm)
+          else comm_lib.CoalescingComm(comm))
+    results: List = [None] * len(streams)
+    live = {}
+    for i, s in enumerate(streams):
+        try:
+            live[i] = (s, s.send(None))
+        except StopIteration as e:   # zero-round stream
+            results[i] = e.value
+    r = 0
+    while live:
+        handles = {i: cc.enqueue(payload) for i, (_, payload) in live.items()}
+        opened = cc.flush()
+        nxt = {}
+        for i, (s, _) in live.items():
+            try:
+                nxt[i] = (s, s.send(opened[handles[i]]))
+            except StopIteration as e:
+                results[i] = e.value
+        live = nxt
+        if on_round is not None:
+            on_round(r)
+        r += 1
+    return results
+
+
+def _sel_words(comm, template: torch.Tensor) -> torch.Tensor:
+    """One word per party: all-ones on party 0, zero on the others (the
+    Beaver open correction), as the kernels take it."""
+    p0 = comm.party_is(0, template).reshape(-1)
+    return torch.where(p0, -1, 0).to(torch.int32)
+
+
+def _no_cone(cone: bool) -> None:
+    if cone:
+        raise NotImplementedError(
+            "the MSB-cone-pruned adder is not ported yet (see ROADMAP.md)")
+
+
+# ---------------------------------------------------------------------------
+# Secure AND on packed binary shares (one communication round)
+# ---------------------------------------------------------------------------
+
+def _and_open_rounds(x, y, triple: beaver.BinTriple, comm):
+    """Round generator for z = x & y on XOR-shared packed words."""
+    d = x ^ triple.a
+    e = y ^ triple.b
+    opened = yield torch.stack([d, e], dim=1)   # single exchange
+    d_open = d ^ opened[:, 0]
+    e_open = e ^ opened[:, 1]
+    return kops.beaver_and(d_open, e_open, triple.a, triple.b, triple.c,
+                           _sel_words(comm, x))
+
+
+def and_open(x, y, triple: beaver.BinTriple, comm) -> torch.Tensor:
+    """z = x & y on XOR-shared packed words. One swap (round) of (d, e)."""
+    return drive(_and_open_rounds(x, y, triple, comm), comm)
+
+
+# ---------------------------------------------------------------------------
+# Kogge-Stone adder over packed bitplanes -> MSB (sign) of x + y mod 2^w
+# ---------------------------------------------------------------------------
+
+def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
+                      cone: bool):
+    """Round generator for the MSB of (x + y mod 2^w): the initial AND,
+    then per level one ``ks_mask`` pass, one exchange and one
+    ``ks_combine`` pass."""
+    _no_cone(cone)
+    p0 = xw ^ yw                      # initial propagate (local)
+    if w == 1:
+        return p0[..., 0, :]
+    g = yield from _and_open_rounds(xw, yw, triples.bin_init, comm)
+    p = p0
+    sel = _sel_words(comm, xw)
+    for lvl in range(schedule_lib.n_levels(w)):
+        tri = triples.bin_levels[lvl]
+        d_half, e_half = kops.ks_mask(g, p, tri.a, tri.b, 1 << lvl)
+        opened = yield torch.stack([d_half, e_half], dim=1)   # one round
+        g, p = kops.ks_combine(d_half, opened[:, 0], e_half, opened[:, 1],
+                               tri.a, tri.b, tri.c, sel, g)
+    # carry into bit (w-1) is the prefix-generate of bit (w-2)
+    return p0[..., w - 1, :] ^ g[..., w - 2, :]
+
+
+def adder_msb(xw, yw, triples: beaver.ReluTriples, comm, w: int,
+              cone: bool = False) -> torch.Tensor:
+    """XOR shares (P, W) of the MSB of (x + y mod 2^w) from (P, w, W)
+    packed plane shares of the two addends."""
+    return drive(_adder_msb_rounds(xw, yw, triples, comm, w, cone), comm)
+
+
+# ---------------------------------------------------------------------------
+# A2B prep: XOR-share each party's (reduced-ring) arithmetic share
+# ---------------------------------------------------------------------------
+
+def _a2b_prepare_rounds(key, v_packed: torch.Tensor, comm):
+    # every party derives the full (n_parties, ...) masks from the shared
+    # key and keeps its own rows (``party_slice``)
+    full = prng.bits_words(key, (comm.n_parties,) + tuple(v_packed.shape[1:]))
+    r = comm.party_slice(full)
+    masked = v_packed ^ r
+    other_mask = yield r
+    p0 = comm.party_is(0, v_packed)
+    x0_shares = torch.where(p0, masked, other_mask)   # shares of party 0's value
+    x1_shares = torch.where(p0, other_mask, masked)   # shares of party 1's value
+    return x0_shares, x1_shares
+
+
+def a2b_prepare(key, v_packed: torch.Tensor, comm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """From each party's packed planes (P, w, W) of its own arithmetic
+    share, XOR shares of party 0's and party 1's values.  One round."""
+    return drive(_a2b_prepare_rounds(key, v_packed, comm), comm)
+
+
+# ---------------------------------------------------------------------------
+# Beaver multiplication on Z/2^64 (one round)
+# ---------------------------------------------------------------------------
+
+def _beaver_mul_rounds(x: torch.Tensor, y: torch.Tensor,
+                       triple: beaver.ArithTriple, comm):
+    e = x - triple.a
+    f = y - triple.b
+    other = yield torch.stack([e, f], dim=1)         # single exchange
+    e_open = e + other[:, 0]
+    f_open = f + other[:, 1]
+    z = triple.c + (e_open * triple.b + f_open * triple.a)
+    p0 = comm.party_is(0, z)
+    return torch.where(p0, z + e_open * f_open, z)
+
+
+def beaver_mul(x: torch.Tensor, y: torch.Tensor, triple: beaver.ArithTriple,
+               comm) -> torch.Tensor:
+    return drive(_beaver_mul_rounds(x, y, triple, comm), comm)
+
+
+# ---------------------------------------------------------------------------
+# B2A of a single packed bit plane -> arithmetic shares of the bit
+# ---------------------------------------------------------------------------
+
+def _b2a_bit_rounds(bits: torch.Tensor, triple: beaver.ArithTriple, comm):
+    b = bits.to(torch.int64)
+    zero = torch.zeros_like(b)
+    p0 = comm.party_is(0, b)
+    x = torch.where(p0, b, zero)
+    y = torch.where(p0, zero, b)
+    xy = yield from _beaver_mul_rounds(x, y, triple, comm)
+    return b - (xy << 1)
+
+
+def b2a_bit(bits: torch.Tensor, triple: beaver.ArithTriple, comm) -> torch.Tensor:
+    """bits: (P, E) XOR shares in {0, 1} -> additive shares of the bit:
+    b = b0 + b1 - 2*b0*b1, the cross term by one Beaver mult."""
+    return drive(_b2a_bit_rounds(bits, triple, comm), comm)
+
+
+# ---------------------------------------------------------------------------
+# DReLU / ReLU (exact and reduced-ring)
+# ---------------------------------------------------------------------------
+
+def _drelu_rounds(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
+                  k: int, m: int, cone: bool):
+    w = k - m
+    n = x.shape[-1]
+    if w <= 32:
+        planes = ring.bitplanes_u32(ring.extract_bits(x, k, m), w)   # (w, P, E)
+    else:
+        planes = ring.extract_planes(x, k, m)                         # (w, P, E)
+    packed = shares.pack_bits(planes.movedim(0, 1))                   # (P, w, W)
+    x0s, x1s = yield from _a2b_prepare_rounds(key, packed, comm)      # 1 round
+    sign_packed = yield from _adder_msb_rounds(x0s, x1s, triples, comm, w, cone)
+    sign_bits = shares.unpack_bits(sign_packed, n)                    # (P, E)
+    s = yield from _b2a_bit_rounds(sign_bits, triples.b2a, comm)      # 1 round
+    p0 = comm.party_is(0, s)
+    return torch.where(p0, 1 - s, -s)
+
+
+def drelu(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
+          k: int = 64, m: int = 0, cone: bool = False) -> torch.Tensor:
+    """Arithmetic shares of DReLU(x) evaluated on the reduced ring [k:m]
+    (k = 64, m = 0 is the exact baseline).  x: ring shares (P, E)."""
+    return drive(_drelu_rounds(key, x, triples, comm, k, m, cone), comm)
+
+
+def relu_rounds(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
+                k: int = 64, m: int = 0, cone: bool = False):
+    """Round generator for one full ReLU (compose with ``run_streams``)."""
+    d = yield from _drelu_rounds(key, x, triples, comm, k, m, cone)
+    out = yield from _beaver_mul_rounds(x, d, triples.mult, comm)
+    return out
+
+
+def relu(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
+         k: int = 64, m: int = 0, cone: bool = False) -> torch.Tensor:
+    """ReLU(x) = x * DReLU(x[k:m]) (Eq. 3; Eq. 2 when k=64, m=0).  The
+    final multiplication always uses the full-ring share x."""
+    return drive(relu_rounds(key, x, triples, comm, k, m, cone), comm)
+
+
+def relu_many(keys, xs: Sequence[torch.Tensor],
+              triples_list: Sequence[Optional[beaver.ReluTriples]], comm,
+              kms: Sequence[Tuple[int, int]], cone: bool = False,
+              auto_batch: bool = True) -> List[torch.Tensor]:
+    """Round-shared evaluation of N concurrent ReLU groups.
+
+    Every protocol round across all groups is ONE coalesced exchange
+    (rounds = max over groups).  Width-0 groups (k == m) and empty groups
+    cost nothing.  With ``auto_batch`` sibling groups of identical
+    (n_elements, k, m) merge into ONE stream on the element axis, their
+    triples merged bit-exactly (``beaver.concat_relu_triples``) and the
+    protocol randomness taken from the first member's key, exactly as the
+    reference.  Returns per-group ring results in order.
+    """
+    if not (len(keys) == len(xs) == len(triples_list) == len(kms)):
+        raise ValueError(
+            f"relu_many: mismatched lengths keys={len(keys)} xs={len(xs)} "
+            f"triples={len(triples_list)} kms={len(kms)}")
+    cc = (comm if isinstance(comm, comm_lib.CoalescingComm)
+          else comm_lib.CoalescingComm(comm))
+    results: List[Optional[torch.Tensor]] = [None] * len(xs)
+    groups: dict = {}
+    for i, (key, x, tr, (k, m)) in enumerate(zip(keys, xs, triples_list, kms)):
+        n = x.shape[-1]
+        if k == m or n == 0:             # culled identity / empty batch
+            results[i] = x
+            continue
+        bkey = (n, k, m) if auto_batch else i
+        groups.setdefault(bkey, []).append((i, key, x, tr, k, m))
+    stream_args, placements = [], []
+    for members in groups.values():
+        i0, key0, x0, tr0, k, m = members[0]
+        if len(members) == 1:
+            stream_args.append((key0, x0, tr0, k, m))
+            placements.append([(i0, 0, x0.shape[-1])])
+            continue
+        n = x0.shape[-1]
+        xcat = torch.cat([e[2] for e in members], dim=-1)
+        tcat = beaver.concat_relu_triples([e[3] for e in members],
+                                          [n] * len(members), k - m, cone=cone)
+        stream_args.append((key0, xcat, tcat, k, m))
+        placements.append([(e[0], j * n, n) for j, e in enumerate(members)])
+    outs = run_streams(cc, [relu_rounds(key0, x0, tr0, cc, k=k, m=m, cone=cone)
+                            for key0, x0, tr0, k, m in stream_args])
+    for slices, out in zip(placements, outs):
+        if len(slices) == 1:
+            results[slices[0][0]] = out
+        else:
+            for i, off, n in slices:
+                results[i] = out[..., off:off + n]
+    return results
+
+
+def n_rounds(w: int) -> int:
+    """Communication rounds for one ReLU (0 for a culled layer)."""
+    return schedule_lib.stream_rounds(w)

@@ -1,0 +1,171 @@
+"""MPCTensor: the user-facing secret-shared tensor (twin of the reference's
+``core/mpc_tensor.py``).
+
+Carries int64 ring shares with a leading party dimension plus the
+fixed-point scale.  Linear ops with public weights are local (no
+communication); ReLU runs the GMW protocol with an optional HummingBird
+reduced-ring config.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import Device, resolve as resolve_device
+from . import beaver, comm as comm_lib, fixed, gmw, prng, ring, ring_linalg, shares
+from .hummingbird import HBLayer
+
+
+def encode_weights(w_f, frac_bits: int = fixed.DEFAULT_FRAC_BITS,
+                   device: Device = None) -> torch.Tensor:
+    """Public float weights -> fixed-point int32 (|w * 2^f| < 2^31), on
+    ``device`` (default the GPU)."""
+    w = torch.as_tensor(w_f, dtype=torch.float32, device=resolve_device(device))
+    return torch.round(w * (2.0 ** frac_bits)).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MPCTensor:
+    data: torch.Tensor            # int64 ring shares, party dim leading
+    frac_bits: int = fixed.DEFAULT_FRAC_BITS
+
+    # -- construction / reveal ------------------------------------------------
+    @staticmethod
+    def from_plain(key: torch.Tensor, x_f: torch.Tensor, n_parties: int = 2,
+                   frac_bits: int = fixed.DEFAULT_FRAC_BITS) -> "MPCTensor":
+        return MPCTensor(shares.share(key, fixed.encode(x_f, frac_bits), n_parties),
+                         frac_bits)
+
+    def reveal(self) -> torch.Tensor:
+        return fixed.decode(shares.reconstruct(self.data), self.frac_bits)
+
+    def reveal_np(self) -> np.ndarray:
+        return fixed.decode_np(shares.reconstruct(self.data), self.frac_bits)
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape[1:])          # without the party dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    # -- local linear ops ------------------------------------------------------
+    def __add__(self, other: "MPCTensor") -> "MPCTensor":
+        assert self.frac_bits == other.frac_bits
+        return MPCTensor(self.data + other.data, self.frac_bits)
+
+    def __sub__(self, other: "MPCTensor") -> "MPCTensor":
+        assert self.frac_bits == other.frac_bits
+        return MPCTensor(self.data - other.data, self.frac_bits)
+
+    def add_public(self, b_f, comm=None) -> "MPCTensor":
+        """Add a public constant: only party 0 adds it to its share."""
+        comm = comm or comm_lib.SimComm()
+        b = torch.as_tensor(b_f, dtype=torch.float32, device=self.device)
+        enc = fixed.encode(torch.broadcast_to(b, self.shape), self.frac_bits)
+        p0 = comm.party_is(0, self.data)
+        return MPCTensor(self.data + torch.where(p0, enc, torch.zeros_like(enc)),
+                         self.frac_bits)
+
+    def truncate(self, n: Optional[int] = None) -> "MPCTensor":
+        """Fixed-point rescale: arithmetic shift of each signed share
+        (SecureML-style local truncation, +-1 LSB error, rare wrap)."""
+        n = self.frac_bits if n is None else n
+        return MPCTensor(ring.rshift_arith(self.data, n), self.frac_bits)
+
+    def mul_public(self, c_f) -> "MPCTensor":
+        w = encode_weights(c_f, self.frac_bits, self.device)
+        prod = self.data * ring.from_int32(torch.broadcast_to(w, self.shape))
+        return MPCTensor(prod, self.frac_bits).truncate()
+
+    def matmul_public(self, w_f) -> "MPCTensor":
+        """x @ W with public float weights [K, N]; local + truncation."""
+        w = encode_weights(w_f, self.frac_bits, self.device)
+        return MPCTensor(ring_linalg.matmul_pub(self.data, w),
+                         self.frac_bits).truncate()
+
+    def conv2d_public(self, w_f, stride: int = 1,
+                      padding: int = 0) -> "MPCTensor":
+        """NCHW conv with public float weights [Cout, Cin, kh, kw]."""
+        w = encode_weights(w_f, self.frac_bits, self.device)
+        return MPCTensor(ring_linalg.conv2d_pub(self.data, w, stride, padding),
+                         self.frac_bits).truncate()
+
+    def avg_pool(self, window: int) -> "MPCTensor":
+        """Non-overlapping average pooling on [..., C, H, W]."""
+        h, w = self.shape[-2], self.shape[-1]
+        oh, ow = h // window, w // window
+        a = self.data[..., : oh * window, : ow * window]
+        a = a.reshape(a.shape[:-2] + (oh, window, ow, window))
+        return MPCTensor(a.sum(dim=(-3, -1)),
+                         self.frac_bits).mul_public(1.0 / (window * window))
+
+    def global_avg_pool(self) -> "MPCTensor":
+        """[..., C, H, W] -> [..., C] mean over spatial dims."""
+        h, w = self.shape[-2], self.shape[-1]
+        return MPCTensor(self.data.sum(dim=(-2, -1)),
+                         self.frac_bits).mul_public(1.0 / (h * w))
+
+    def reshape(self, *shape) -> "MPCTensor":
+        return MPCTensor(self.data.reshape((self.data.shape[0],) + tuple(shape)),
+                         self.frac_bits)
+
+    # -- the nonlinear op ------------------------------------------------------
+    def relu(self, key: torch.Tensor, comm=None, hb: HBLayer = HBLayer(),
+             triples: Optional[beaver.ReluTriples] = None,
+             cone: bool = False) -> "MPCTensor":
+        """GMW ReLU; ``hb`` selects the HummingBird reduced ring (k, m).  A
+        width-0 ``hb`` (k == m) is the paper's culling mode: the identity at
+        zero communication."""
+        return relu_many([key], [self], comm=comm, hbs=[hb],
+                         triples_list=[triples], cone=cone)[0]
+
+
+def relu_many(keys, tensors: Sequence[MPCTensor], comm=None,
+              hbs: Optional[Sequence[HBLayer]] = None,
+              triples_list: Optional[Sequence] = None,
+              cone: bool = False, auto_batch: bool = True) -> list:
+    """Round-shared GMW ReLU over sibling MPCTensors (see
+    ``gmw.relu_many``).  ``keys[i]`` is consumed exactly as the reference:
+    when no triples are given, it splits into a triple key and a protocol
+    key.  Identity (width-0) layers and empty tensors pass through."""
+    comm = comm or comm_lib.SimComm()
+    n_t = len(tensors)
+    hbs = list(hbs) if hbs is not None else [HBLayer()] * n_t
+    triples_list = list(triples_list) if triples_list is not None else [None] * n_t
+    keys = list(keys)
+    if not (len(keys) == n_t == len(hbs) == len(triples_list)):
+        raise ValueError(
+            f"relu_many: mismatched lengths keys={len(keys)} "
+            f"tensors={n_t} hbs={len(hbs)} triples={len(triples_list)}")
+    out: list = [None] * n_t
+    flats, run_keys, tris, kms, order = [], [], [], [], []
+    for i, (t, hb, key, tri) in enumerate(zip(tensors, hbs, keys, triples_list)):
+        if hb.is_identity:
+            out[i] = t
+            continue
+        n = math.prod(t.shape)
+        if tri is None:
+            kt, key = prng.split(key)
+            tri = beaver.gen_relu_triples(kt, n, hb.width,
+                                          n_parties=t.data.shape[0], cone=cone)
+        flats.append(t.data.reshape((t.data.shape[0], n)))
+        run_keys.append(key)
+        tris.append(tri)
+        kms.append((hb.k, hb.m))
+        order.append(i)
+    rets = gmw.relu_many(run_keys, flats, tris, comm, kms, cone=cone,
+                         auto_batch=auto_batch)
+    for j, i in enumerate(order):
+        t = tensors[i]
+        out[i] = MPCTensor(rets[j].reshape((t.data.shape[0],) + t.shape),
+                           t.frac_bits)
+    return out
+
+
+MPCTensor.relu_many = staticmethod(relu_many)

@@ -1,0 +1,107 @@
+"""Threefry-2x32 counter-based PRNG, bit-identical to ``jax.random``.
+
+The reference draws every protocol mask, share and Beaver triple from
+``jax.random`` with raw ``uint32[2]`` keys (jax's default threefry
+implementation, partitionable mode).  Share-level bit identity with the
+reference therefore needs the same generator.  This module follows
+``jax/_src/prng.py``:
+
+- ``PRNGKey``      = ``threefry_seed``: the 64-bit seed split in two words;
+- ``split``        = ``_threefry_split_foldlike``: hash of a flat counter;
+- ``fold_in``      = ``_threefry_fold_in``: hash of the counter (0, data);
+- ``bits``         = ``_threefry_random_bits_partitionable``, 32-bit width:
+                     the two hash outputs XORed.
+
+A key is an int64 tensor of shape (..., 2) holding two 32-bit words.  All
+arithmetic runs in int64 masked to 32 bits (torch has no ``uint32`` shifts
+or adds), on the key's device.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from ..device import Device, resolve as resolve_device
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2)
+    under the key (k1, k2); every argument holds 32-bit words in int64."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & MASK32
+    b = (x2 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & MASK32
+            b = a ^ _rotl(b, r)
+        a = (a + ks[(i + 1) % 3]) & MASK32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return a, b
+
+
+def PRNGKey(seed: int, device: Device = None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: (hi, lo) words of the 64-bit seed, on
+    ``device`` (default the GPU)."""
+    seed = int(seed)
+    if not -2 ** 63 <= seed < 2 ** 64:
+        raise ValueError(f"seed {seed} does not fit 64 bits")
+    seed &= (1 << 64) - 1
+    return torch.tensor([seed >> 32, seed & MASK32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def _counters(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """jax's ``iota_2x32_shape``: high and low words of the flat index."""
+    n = 1
+    for s in shape:
+        n *= s
+    flat = torch.arange(n, dtype=torch.int64, device=device)
+    return (flat >> 32).reshape(shape), (flat & MASK32).reshape(shape)
+
+
+def _hash_counters(key: torch.Tensor, shape: Tuple[int, ...]):
+    if key.shape != (2,):
+        raise ValueError(f"expected one key of shape (2,), got {tuple(key.shape)}")
+    c1, c2 = _counters(shape, key.device)
+    return threefry2x32(key[0], key[1], c1, c2)
+
+
+def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: keys of shape (*num, 2)."""
+    b1, b2 = _hash_counters(key, _shape(num))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    data_t = torch.full((), int(data) & MASK32, dtype=torch.int64,
+                        device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], zero, data_t)
+    return torch.stack([b1, b2])
+
+
+def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2^32)."""
+    b1, b2 = _hash_counters(key, _shape(shape))
+    return b1 ^ b2
+
+
+def bits_words(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``bits`` as int32 bit patterns: the packed-word dtype of the port."""
+    return bits(key, shape).to(torch.int32)

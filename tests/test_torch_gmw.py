@@ -1,0 +1,170 @@
+"""The port's GMW engine against the reference: triples, relu and relu_many
+shares bit-identical, measured rounds and bytes equal to
+``schedule.simulate``, and the three BENCH_relu.json counts reproduced."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import beaver as jbeaver, comm as jcomm, fixed as jfixed, \
+    gmw as jgmw, ring as jring, shares as jshares
+from repro_torch.core import beaver as tbeaver, comm as tcomm, fixed as tfixed, \
+    gmw as tgmw, prng, ring as tring, schedule, shares as tshares
+
+# 512 elements: the size of RESNET_SMOKE's per-stream stem ReLU at 8x8, so
+# a serial run shares the reference's compiled ops with test_torch_resnet
+N = 512
+
+
+def _shares(seed: int, n: int):
+    x = np.random.default_rng(seed).uniform(-3.5, 3.5, n).astype(np.float32)
+    js = jshares.share(jax.random.PRNGKey(seed), jfixed.encode_np(x))
+    ts = tshares.share(prng.PRNGKey(seed, "cpu"), tfixed.encode_np(x, device="cpu"))
+    return x, js, ts
+
+
+def _same(jr, t):
+    np.testing.assert_array_equal(tring.to_uint64_np(t), jring.to_uint64_np(jr))
+
+
+def _same_triples(jt, tt):
+    for jb, tb in ((jt.bin_init, tt.bin_init), (jt.bin_levels, tt.bin_levels)):
+        for f in ("a", "b", "c"):
+            np.testing.assert_array_equal(getattr(tb, f).numpy(),
+                                          np.asarray(getattr(jb, f)).view(np.int32))
+    for ja, ta in ((jt.b2a, tt.b2a), (jt.mult, tt.mult)):
+        for f in ("a", "b", "c"):
+            _same(getattr(ja, f), getattr(ta, f))
+
+
+@pytest.mark.parametrize("k,m", [(64, 0), (21, 13), (14, 13)])
+def test_relu_shares_bit_identical(k, m):
+    """Exact 64-bit, HummingBird (21, 13) and w = 1."""
+    x, js, ts = _shares(1, N)
+    jt = jbeaver.gen_relu_triples(jax.random.PRNGKey(2), N, k - m)
+    tt = tbeaver.gen_relu_triples(prng.PRNGKey(2, "cpu"), N, k - m)
+    _same_triples(jt, tt)
+    jout = jgmw.relu(jax.random.PRNGKey(3), js, jt, jcomm.SimComm(), k=k, m=m)
+    cm = tcomm.CountingComm()
+    tout = tgmw.relu(prng.PRNGKey(3, "cpu"), ts, tt, cm, k=k, m=m)
+    _same(jout, tout)
+    sched = schedule.simulate([(N, k - m, (N, k, m))])
+    assert (cm.n_swaps, cm.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
+    if k == 64:
+        got = tfixed.decode_np(tshares.reconstruct(tout))
+        np.testing.assert_allclose(got, np.maximum(x, 0), atol=2 ** -16)
+
+
+def test_relu_many_merged_ragged_and_culled():
+    """Identical siblings merge (bit-level triple repack), a ragged group
+    keeps its own payload, a width-0 group is the identity."""
+    specs = [(N, 21, 13), (N, 21, 13), (N // 2, 20, 14), (N, 13, 13)]
+    jx, tx, jtr, ttr, jk, tk = [], [], [], [], [], []
+    for i, (n, k, m) in enumerate(specs):
+        _, js, ts = _shares(10 + i, n)
+        jx.append(js)
+        tx.append(ts)
+        jtr.append(jbeaver.gen_relu_triples(jax.random.PRNGKey(20 + i), n, k - m)
+                   if k > m else None)
+        ttr.append(tbeaver.gen_relu_triples(prng.PRNGKey(20 + i, "cpu"), n, k - m)
+                   if k > m else None)
+        jk.append(jax.random.PRNGKey(30 + i))
+        tk.append(prng.PRNGKey(30 + i, "cpu"))
+    kms = [(k, m) for _, k, m in specs]
+    jouts = jgmw.relu_many(jk, jx, jtr, jcomm.SimComm(), kms)
+    cc = tcomm.CoalescingComm()
+    touts = tgmw.relu_many(tk, tx, ttr, cc, kms)
+    for jo, to in zip(jouts, touts):
+        _same(jo, to)
+    sched = schedule.simulate([(n, k - m, (n, k, m)) for n, k, m in specs])
+    assert (cc.n_rounds, cc.bytes_tx, tuple(cc.round_parts)) == \
+        (sched.n_rounds, sched.bytes_tx, sched.round_parts)
+    merged = tbeaver.concat_relu_triples(ttr[:2], [N, N], 8)
+    jmerged = jbeaver.concat_relu_triples(jtr[:2], [N, N], 8)
+    _same_triples(jmerged, merged)
+
+
+def _bench_shares(n: int, k: int, m: int, seed: int):
+    x = np.random.default_rng(seed).uniform(-3.5, 3.5, n).astype(np.float32)
+    xs = tshares.share(prng.PRNGKey(50 + seed, "cpu"), tfixed.encode_np(x, device="cpu"))
+    return xs, tbeaver.gen_relu_triples(prng.PRNGKey(60 + seed, "cpu"), n, k - m)
+
+
+@pytest.mark.parametrize("name,k,m,rounds,nbytes", [
+    ("exact_64", 64, 0, 10, 507904), ("reduced_8of64", 21, 13, 7, 96256)])
+def test_bench_relu_counts(name, k, m, rounds, nbytes):
+    """BENCH_relu.json ``configs``: 2048 elements, one ReLU."""
+    xs, tr = _bench_shares(2048, k, m, 0)
+    cm = tcomm.CountingComm()
+    tgmw.relu(prng.PRNGKey(3, "cpu"), xs, tr, cm, k=k, m=m)
+    assert (cm.n_swaps, cm.bytes_tx) == (rounds, nbytes)
+
+
+def test_bench_multigroup_counts():
+    """BENCH_relu.json ``multigroup``: four concurrent groups, 10 fused
+    rounds and 696 576 B (31 rounds when run one by one)."""
+    specs = [(2048, 64, 0), (2048, 21, 13), (1024, 21, 13), (1024, 20, 14)]
+    xs, trs = zip(*(_bench_shares(n, k, m, i) for i, (n, k, m) in enumerate(specs)))
+    cc = tcomm.CoalescingComm()
+    tgmw.relu_many([prng.PRNGKey(40 + i, "cpu") for i in range(4)], list(xs), list(trs),
+                   cc, [(k, m) for _, k, m in specs])
+    assert (cc.n_rounds, cc.bytes_tx) == (10, 696576)
+    assert sum(tgmw.n_rounds(k - m) for _, k, m in specs) == 31
+
+
+def test_cone_is_not_ported():
+    _, _, ts = _shares(1, 8)
+    with pytest.raises(NotImplementedError):
+        tbeaver.gen_relu_triples(prng.PRNGKey(0, "cpu"), 8, 8, cone=True)
+    tt = tbeaver.gen_relu_triples(prng.PRNGKey(0, "cpu"), 8, 8)
+    with pytest.raises(NotImplementedError):
+        tgmw.relu(prng.PRNGKey(1, "cpu"), ts, tt, tcomm.SimComm(), k=21, m=13, cone=True)
+
+
+def test_single_round_drivers_bit_identical():
+    """and_open, a2b_prepare, beaver_mul, b2a_bit and drelu on their own."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 2 ** 32, (4, 8), dtype=np.uint64).astype(np.uint32)
+    y = rng.integers(0, 2 ** 32, (4, 8), dtype=np.uint64).astype(np.uint32)
+    jxs = jshares.xor_share_packed(jax.random.PRNGKey(4), jax.numpy.asarray(x))
+    jys = jshares.xor_share_packed(jax.random.PRNGKey(5), jax.numpy.asarray(y))
+    txs = tshares.xor_share_packed(prng.PRNGKey(4, "cpu"), torch.from_numpy(x.view(np.int32)))
+    tys = tshares.xor_share_packed(prng.PRNGKey(5, "cpu"), torch.from_numpy(y.view(np.int32)))
+    jz = jgmw.and_open(jxs, jys, jbeaver.gen_bin(jax.random.PRNGKey(6), (4, 8)),
+                       jcomm.SimComm())
+    tz = tgmw.and_open(txs, tys, tbeaver.gen_bin(prng.PRNGKey(6, "cpu"), (4, 8)),
+                       tcomm.SimComm())
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz).view(np.int32))
+    for j, t in zip(jgmw.a2b_prepare(jax.random.PRNGKey(7), jxs, jcomm.SimComm()),
+                    tgmw.a2b_prepare(prng.PRNGKey(7, "cpu"), txs, tcomm.SimComm())):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j).view(np.int32))
+    _, ja, ta = _shares(8, N)
+    _, jb, tb = _shares(9, N)
+    _same(jgmw.beaver_mul(ja, jb, jbeaver.gen_arith(jax.random.PRNGKey(1), (N,)),
+                          jcomm.SimComm()),
+          tgmw.beaver_mul(ta, tb, tbeaver.gen_arith(prng.PRNGKey(1, "cpu"), (N,)),
+                          tcomm.SimComm()))
+    bits = rng.integers(0, 2, (2, N), dtype=np.uint32)
+    _same(jgmw.b2a_bit(jax.numpy.asarray(bits),
+                       jbeaver.gen_arith(jax.random.PRNGKey(2), (N,)), jcomm.SimComm()),
+          tgmw.b2a_bit(torch.from_numpy(bits.astype(np.int32)),
+                       tbeaver.gen_arith(prng.PRNGKey(2, "cpu"), (N,)), tcomm.SimComm()))
+    jt = jbeaver.gen_relu_triples(jax.random.PRNGKey(3), N, 8)
+    tt = tbeaver.gen_relu_triples(prng.PRNGKey(3, "cpu"), N, 8)
+    _same(jgmw.drelu(jax.random.PRNGKey(4), ja, jt, jcomm.SimComm(), k=21, m=13),
+          tgmw.drelu(prng.PRNGKey(4, "cpu"), ta, tt, tcomm.SimComm(), k=21, m=13))
+
+
+def test_triple_pool_order_and_exhaustion():
+    from repro_torch import errors
+    bundles = [tbeaver.gen_relu_triples(prng.PRNGKey(i, "cpu"), 8, 4) for i in range(2)]
+    pool = tbeaver.TriplePool(bundles + [None])
+    assert pool.relu_triples(8, 4) is bundles[0]
+    token = pool.checkpoint()
+    assert pool.relu_triples(8, 4) is bundles[1]
+    pool.rollback(token)
+    assert pool.relu_triples(8, 4) is bundles[1]
+    assert pool.relu_triples(8, 0) is None
+    with pytest.raises(errors.TriplePoolExhausted):
+        pool.relu_triples(8, 4)
+    assert tbeaver.InlineTTP().relu_triples(8, 4) is None

@@ -1,0 +1,117 @@
+"""The port's four kernels: plain versions against the reference's
+``kernels/ref.py``, its Pallas kernels in interpret mode and the jnp path
+its main path runs (the CUDA kernels themselves: tests/test_torch_cuda.py).
+All comparisons are bit-exact."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ring as jring, ring_linalg as jlinalg
+from repro.kernels import gmw_round, ref as jref
+from repro_torch.core import ring as tring
+from repro_torch.kernels import ops, ref as tref
+
+SEL = np.array([0xFFFFFFFF, 0], np.uint32)     # all-ones on party 0
+
+
+def _words(rng, *shape) -> np.ndarray:
+    return rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _i32(x) -> np.ndarray:
+    return np.asarray(x).view(np.int32)
+
+
+def _sel_full(shape) -> np.ndarray:
+    return np.broadcast_to(SEL.reshape((2,) + (1,) * (len(shape) - 1)), shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 256), (2, 64, 33), (2, 3, 5, 7)])
+def test_beaver_and_plain_vs_ref(shape):
+    rng = np.random.default_rng(0)
+    d, e, a, b, c = (_words(rng, *shape) for _ in range(5))
+    want = jref.beaver_and(*(jnp.asarray(x) for x in (d, e, a, b, c)),
+                           jnp.asarray(_sel_full(shape)))
+    got = tref.beaver_and(*(_t(x) for x in (d, e, a, b, c)), _t(SEL))
+    np.testing.assert_array_equal(got.numpy(), _i32(want))
+
+
+def test_beaver_and_plain_vs_pallas_2d():
+    """The Pallas kernel takes (planes, W) only: one party's rows."""
+    rng = np.random.default_rng(1)
+    d, e, a, b, c = (_words(rng, 2, 8, 256) for _ in range(5))
+    got = tref.beaver_and(*(_t(x) for x in (d, e, a, b, c)), _t(SEL))
+    for party in range(2):
+        sel = np.full((8, 256), SEL[party], np.uint32)
+        want = gmw_round.beaver_and_pallas(
+            *(jnp.asarray(x[party]) for x in (d, e, a, b, c)), jnp.asarray(sel),
+            interpret=True)
+        np.testing.assert_array_equal(got[party].numpy(), _i32(want))
+
+
+@pytest.mark.parametrize("w,shift", [(8, 1), (8, 4), (64, 32), (6, 2), (64, 1)])
+def test_ks_mask_plain_vs_ref_and_pallas(w, shift):
+    rng = np.random.default_rng(2)
+    g, p = _words(rng, 2, w, 128), _words(rng, 2, w, 128)
+    a, b = _words(rng, 2, 2 * w, 128), _words(rng, 2, 2 * w, 128)
+    d_t, e_t = tref.ks_mask(_t(g), _t(p), _t(a), _t(b), shift)
+    for want in (jref.ks_mask(*map(jnp.asarray, (g, p, a, b)), shift),
+                 gmw_round.ks_mask_pallas(*map(jnp.asarray, (g, p, a, b)), shift,
+                                          interpret=True, block_words=128)):
+        np.testing.assert_array_equal(d_t.numpy(), _i32(want[0]))
+        np.testing.assert_array_equal(e_t.numpy(), _i32(want[1]))
+
+
+@pytest.mark.parametrize("w", [8, 64])
+def test_ks_combine_plain_vs_ref_and_pallas(w):
+    rng = np.random.default_rng(3)
+    d, e, a, b, c = (_words(rng, 2, 2 * w, 128) for _ in range(5))
+    opened = _words(rng, 2, 2, 2 * w, 128)       # peer halves, as received
+    g = _words(rng, 2, w, 128)
+    op_t = _t(opened)
+    g_t, p_t = tref.ks_combine(_t(d), op_t[:, 0], _t(e), op_t[:, 1], _t(a), _t(b),
+                               _t(c), _t(SEL), _t(g))
+    args = [jnp.asarray(x) for x in (d, opened[:, 0], e, opened[:, 1], a, b, c,
+                                     _sel_full(d.shape), g)]
+    for want in (jref.ks_combine(*args),
+                 gmw_round.ks_combine_pallas(*args, interpret=True, block_words=128)):
+        np.testing.assert_array_equal(g_t.numpy(), _i32(want[0]))
+        np.testing.assert_array_equal(p_t.numpy(), _i32(want[1]))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 128, 128), (5, 40, 12), (33, 300, 7)])
+def test_ring_matmul_plain_vs_ref_jnp_and_oracle(m, k, n):
+    rng = np.random.default_rng(4)
+    x_np = rng.integers(0, 2 ** 64, (m, k), dtype=np.uint64)
+    x_np[0, :4] = [0, 2 ** 63, 2 ** 64 - 1, 1]
+    w_np = rng.integers(-2 ** 31, 2 ** 31, (k, n)).astype(np.int32)
+    got = tring.to_uint64_np(tref.ring_matmul(tring.from_uint64_np(x_np, "cpu"),
+                                              torch.from_numpy(w_np)))
+    jx = jring.from_uint64_np(x_np)
+    lo, hi = jref.ring_matmul(jring.balanced_digits(jx),
+                              jring.balanced_digits_i32(jnp.asarray(w_np)))
+    np.testing.assert_array_equal(got, jring.to_uint64_np(jring.Ring64(lo, hi)))
+    jnp_path = jlinalg._matmul_chunk(jx, jnp.asarray(w_np))
+    np.testing.assert_array_equal(got, jring.to_uint64_np(jnp_path))
+    oracle = (x_np.astype(object) @ w_np.astype(object)) % (1 << 64)
+    np.testing.assert_array_equal(got, oracle.astype(np.uint64))
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    rng = np.random.default_rng(5)
+    ops.reset_launches()
+    x = tring.from_uint64_np(rng.integers(0, 2 ** 64, (4, 9), dtype=np.uint64),
+                             "cpu")
+    w = torch.from_numpy(rng.integers(-99, 99, (9, 3)).astype(np.int32))
+    assert torch.equal(ops.ring_matmul(x, w), tref.ring_matmul(x, w))
+    g = _t(_words(rng, 2, 4, 3))
+    a = _t(_words(rng, 2, 8, 3))
+    assert all(torch.equal(u, v) for u, v in zip(ops.ks_mask(g, g, a, a, 2),
+                                                  tref.ks_mask(g, g, a, a, 2)))
+    assert ops.launch_counts() == {"beaver_and": 0, "ks_mask": 0,
+                                   "ks_combine": 0, "ring_matmul": 0}

@@ -1,0 +1,231 @@
+"""The port's main path as a whole: RESNET_SMOKE private inference through
+``api.compile`` and ``PrivateModel.__call__`` against the reference, plus
+the rule that the port imports neither jax nor the reference package."""
+import ast
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import api as japi
+from repro.configs import RESNET_SMOKE as JSMOKE
+from repro.core import comm as jcomm, mpc_tensor as jmpc
+from repro.models import resnet as jres
+from repro_torch import api as tapi
+from repro_torch.configs import RESNET_SMOKE as TSMOKE
+from repro_torch.core import comm as tcomm, mpc_tensor as tmpc, prng, ring as tring
+from repro_torch.models import resnet as tres
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+HW = 8
+
+
+def _np_params(seed: int = 0):
+    """A params tree in the reference's layout drawn with numpy (no cold
+    jax.random compiles): conv and fc weights at the reference's init
+    scales, and non-trivial BatchNorm statistics so BN folding is exercised."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if name in ("gamma", "var"):
+            return rng.uniform(0.8, 1.2, shape)
+        if name in ("beta", "mean"):
+            return rng.normal(0, 0.05, shape)
+        if name == "b":
+            return np.zeros(shape)
+        if len(shape) == 4:
+            return rng.standard_normal(shape) * (2.0 / np.prod(shape[1:])) ** 0.5
+        return rng.standard_normal(shape) * shape[0] ** -0.5
+
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return leaf(name, tuple(tree.shape)).astype(np.float32)
+    return walk(tres.init(TSMOKE, 0, "cpu"))      # the port's tree as the skeleton
+
+
+@pytest.fixture(scope="module")
+def models():
+    jp = jax.tree_util.tree_map(jax.numpy.asarray, _np_params())
+    tp = tres.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jp, tp
+
+
+def _jafn(p, x, relu_fn=None):
+    return jres.apply(p, x, JSMOKE, relu_fn=relu_fn)
+
+
+def _tafn(p, x, relu_fn=None):
+    return tres.apply(p, x, TSMOKE, relu_fn=relu_fn)
+
+
+def _reduced(api, plan):
+    return plan.with_hb(api.HBConfig(
+        tuple([api.HBLayer(k=21, m=13)] * (plan.n_groups - 1)
+              + [api.HBLayer(k=13, m=13)]), plan.group_elements))
+
+
+def test_plaintext_forward_matches(models):
+    """float32 forward; sums run in another order, so atol 1e-5."""
+    jp, tp = models
+    x = np.random.default_rng(0).uniform(-1, 1, (2, 3, HW, HW)).astype(np.float32)
+    want = np.asarray(_jafn(jp, x))
+    with torch.no_grad():
+        got = tres.ResNet(tp, TSMOKE)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_plan_json_and_digest(models, reduced, tmp_path):
+    jp, tp = models
+    jplan, tplan = jres.trace(jp, JSMOKE, 1, HW), tres.trace(tp, TSMOKE, 1, HW)
+    if reduced:
+        jplan, tplan = _reduced(japi, jplan), _reduced(tapi, tplan)
+    assert tplan.to_json() == jplan.to_json()
+    assert tplan.digest() == jplan.digest()
+    tplan.save(tmp_path / "plan.json")
+    assert tapi.Plan.load(tmp_path / "plan.json") == tplan.validate()
+    assert tplan.cost(streams=2).bytes_tx == jplan.cost(streams=2).bytes_tx
+
+
+def test_folded_weight_encoding_matches():
+    """fold_bn + encode_weights on non-trivial BatchNorm statistics: the
+    float32 steps give the same int32 weights and biases in both packages."""
+    rng = np.random.default_rng(1)
+    w = rng.normal(0, 0.3, (16, 8, 3, 3)).astype(np.float32)
+    bn = {"gamma": rng.uniform(0.5, 1.5, 16), "beta": rng.normal(0, 0.2, 16),
+          "mean": rng.normal(0, 0.5, 16), "var": rng.uniform(0.2, 2.0, 16)}
+    bn = {k: v.astype(np.float32) for k, v in bn.items()}
+    jw, jb = jres.fold_bn(jax.numpy.asarray(w),
+                          {k: jax.numpy.asarray(v) for k, v in bn.items()})
+    tw, tb = tres.fold_bn(torch.from_numpy(w),
+                          {k: torch.from_numpy(v) for k, v in bn.items()})
+    for j, t in ((jw, tw), (jb, tb)):
+        np.testing.assert_array_equal(tmpc.encode_weights(t, device="cpu").numpy(),
+                                      np.asarray(jmpc.encode_weights(j)))
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_private_inference_bit_identical(models, reduced):
+    """2 sibling streams, same session key and input shares: output shares
+    bit-identical; measured rounds and bytes equal plan.schedule(2)."""
+    jp, tp = models
+    jplan, tplan = jres.trace(jp, JSMOKE, 1, HW), tres.trace(tp, TSMOKE, 1, HW)
+    if reduced:
+        jplan, tplan = _reduced(japi, jplan), _reduced(tapi, tplan)
+    jcc, tcc = jcomm.CoalescingComm(), tcomm.CoalescingComm()
+    jm = japi.compile(_jafn, jp, JSMOKE, jplan, japi.Session(key=0, comm=jcc))
+    tm = tapi.compile(_tafn, tp, TSMOKE, tplan,
+                      tapi.Session(key=0, comm=tcc, device="cpu"))
+    rng = np.random.default_rng(2)
+    xs = [rng.uniform(-1, 1, (1, 3, HW, HW)).astype(np.float32) for _ in range(2)]
+    jX = [jm.encrypt(jax.random.PRNGKey(10 + i), x) for i, x in enumerate(xs)]
+    tX = [tmpc.MPCTensor(tring.from_limbs(np.asarray(X.data.lo),
+                                          np.asarray(X.data.hi), "cpu"))
+          for X in jX]
+    jouts, touts = jm(jX), tm(tX)
+    for jo, to in zip(jouts, touts):
+        lo, hi = tring.to_limbs(to.data)
+        np.testing.assert_array_equal(lo, np.asarray(jo.data.lo))
+        np.testing.assert_array_equal(hi, np.asarray(jo.data.hi))
+    sched = tplan.schedule(streams=2)
+    assert (tcc.n_rounds, tcc.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
+    assert (tcc.n_rounds, tcc.bytes_tx) == (jcc.n_rounds, jcc.bytes_tx)
+    if not reduced:
+        want = np.concatenate([tm.plaintext(torch.from_numpy(x)).numpy()
+                               for x in xs])
+        got = np.concatenate([o.reveal_np() for o in touts])
+        np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+def test_encrypt_matches_reference_shares(models):
+    """The port's own input sharing equals the reference's for one key."""
+    jp, tp = models
+    x = np.random.default_rng(3).uniform(-1, 1, (1, 3, HW, HW)).astype(np.float32)
+    jplan, tplan = jres.trace(jp, JSMOKE, 1, HW), tres.trace(tp, TSMOKE, 1, HW)
+    jX = japi.compile(_jafn, jp, JSMOKE, jplan).encrypt(jax.random.PRNGKey(5), x)
+    tX = tapi.compile(_tafn, tp, TSMOKE, tplan, tapi.Session(device="cpu")) \
+        .encrypt(prng.PRNGKey(5, "cpu"), x)
+    lo, hi = tring.to_limbs(tX.data)
+    np.testing.assert_array_equal(lo, np.asarray(jX.data.lo))
+    np.testing.assert_array_equal(hi, np.asarray(jX.data.hi))
+
+
+def test_mpc_tensor_ops_bit_identical():
+    """The MPCTensor surface beyond the ResNet forward: sub, mul_public,
+    matmul_public, avg_pool, reshape and a single-tensor relu."""
+    rng = np.random.default_rng(4)
+    # (1, 8, 8, 8): the relu's 512 elements reuse the reference's compiled
+    # ops of the whole-forward test above (its stage-2 merged ReLU and stem
+    # triples have the same size)
+    x = rng.uniform(-2, 2, (1, 8, 8, 8)).astype(np.float32)
+    y = rng.uniform(-2, 2, (1, 8, 8, 8)).astype(np.float32)
+    jx = jmpc.MPCTensor.from_plain(jax.random.PRNGKey(1), jax.numpy.asarray(x))
+    jy = jmpc.MPCTensor.from_plain(jax.random.PRNGKey(2), jax.numpy.asarray(y))
+    tx = tmpc.MPCTensor.from_plain(prng.PRNGKey(1, "cpu"), torch.from_numpy(x))
+    ty = tmpc.MPCTensor.from_plain(prng.PRNGKey(2, "cpu"), torch.from_numpy(y))
+    wmat = rng.normal(0, 0.5, (8, 3)).astype(np.float32)
+    pairs = [((jx - jy).mul_public(0.75), (tx - ty).mul_public(0.75)),
+             (jx.matmul_public(wmat), tx.matmul_public(torch.from_numpy(wmat))),
+             (jx.avg_pool(2).reshape(1, 128), tx.avg_pool(2).reshape(1, 128)),
+             (jx.relu(jax.random.PRNGKey(3)), tx.relu(prng.PRNGKey(3, "cpu")))]
+    for j, t in pairs:
+        lo, hi = tring.to_limbs(t.data)
+        np.testing.assert_array_equal(lo, np.asarray(j.data.lo))
+        np.testing.assert_array_equal(hi, np.asarray(j.data.hi))
+    np.testing.assert_allclose(pairs[3][1].reveal_np(), np.maximum(x, 0), atol=2e-4)
+
+
+def test_session_keys_match_reference():
+    """next_key walks the same stream; request_key is fold_in(seed, id)."""
+    js, ts = japi.Session(key=7), tapi.Session(key=7, device="cpu")
+    for _ in range(3):
+        np.testing.assert_array_equal(ts.next_key().numpy(),
+                                      np.asarray(js.next_key()).astype(np.int64))
+    np.testing.assert_array_equal(ts.request_key(12).numpy(),
+                                  np.asarray(js.request_key(12)).astype(np.int64))
+
+
+def test_session_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert tapi.Session().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            tapi.Session()
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: prng.PRNGKey(0, d),
+    lambda d: tres.init(TSMOKE, 0, d)["stem"],
+    lambda d: tres.params_from_jax({"w": np.ones(3, np.float32)}, d)["w"],
+    lambda d: tmpc.encode_weights(np.ones(3, np.float32), device=d),
+    lambda d: tring.from_uint64_np(np.ones(3, np.uint64), d),
+], ids=["PRNGKey", "init", "params_from_jax", "encode_weights", "from_uint64_np"])
+def test_entry_points_default_to_cuda(make):
+    """device=None means the GPU, and raises without one; "cpu" is honoured."""
+    assert make("cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            make(None)
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad

@@ -11,21 +11,24 @@ Phases (any failure raises, and the script exits non-zero):
 2. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel) and print the build time;
 3. kernels: call each kernel's wrapper on CUDA tensors at the shapes the
-   main path gives it, require it to equal its plain PyTorch version
-   exactly, and time both with CUDA events (median over trials); read the
-   ring_matmul kernel's IMAD count from its SASS;
+   main path gives it (the stem's ReLU, 4 requests merged), require it to
+   equal its plain PyTorch version exactly, and time both with CUDA
+   events (median over trials); read the ring_matmul kernel's IMAD count
+   from its SASS;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
-   ``PrivateModel.__call__``, under the exact plan and under the reduced
-   plan ((k, m) = (21, 13) on every ReLU group but the last, which is
-   culled).  Launch counters are zeroed just before each run and read just
-   after; every kernel must have launched.  Measured fused rounds and bytes
-   must equal ``plan.schedule(streams=4)``; the exact plan's revealed
-   logits must match the plaintext forward within the stated tolerance;
+   ``PrivateModel.__call__``, under four plans: exact, reduced ((k, m) =
+   (21, 13) on every ReLU group but the last, which is culled), and the
+   same two with the MSB-cone-pruned adder (``cone=True``).  Launch
+   counters are zeroed just before each run and read just after; each run
+   must launch exactly the kernels of its path (``PATH_KERNELS``).
+   Measured fused rounds and bytes must equal ``plan.schedule(streams=4)``;
+   the exact plans' revealed logits must match the plaintext forward
+   within the stated tolerance;
 5. stem breakdown: the exact plan's stem layer for 4 requests timed by
-   part (conv, triples, protocol), and the device's busy share of one
-   traced run of it.
+   part (conv, triples, protocol; the adder dense and cone-pruned), and
+   the device's busy share of one traced run of it.
 
 Output: a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -57,6 +60,16 @@ IMAD_PER_S = 64 * 132 * 1.98e9
 IMAD_PER_MAC = 3
 
 STREAMS = 4
+# the kernels each main-path run must launch, and no others: pack_ring and
+# unpack on every ReLU, pack (and unpack) on every merge of the 4 streams'
+# triples, ring_matmul on every conv and fc; the dense adder runs on
+# beaver_and, ks_mask and ks_combine, the cone adder on beaver_and and
+# ks_level
+_COMMON = {"beaver_and", "ring_matmul", "pack", "pack_ring", "unpack"}
+PATH_KERNELS = {"exact": _COMMON | {"ks_mask", "ks_combine"},
+                "reduced": _COMMON | {"ks_mask", "ks_combine"},
+                "exact-cone": _COMMON | {"ks_level"},
+                "reduced-cone": _COMMON | {"ks_level"}}
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -178,10 +191,10 @@ def kernel_phase():
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
 
     def record(name, source, replaces, fn, plain, bytes_moved, ops_s=0.0,
-               shape="", into=rows):
+               shape="", into=rows, path="exact"):
         err = max_abs_err(fn(), plain())
         ms, hot_ms = device_ms(fn, scratch.zero_)
-        plain_ms, _ = device_ms(plain, scratch.zero_, trials=3, reps=3)
+        plain_ms, _ = device_ms(plain, scratch.zero_)
         call_ms = eager_ms(fn)
         bytes_s = bytes_moved / HBM_BYTES_PER_S
         bound_s = max(bytes_s, ops_s)
@@ -190,7 +203,7 @@ def kernel_phase():
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
                      "bound_by": "bytes" if bytes_s >= ops_s else "operations",
                      "library_ms": None, "shape": shape, "hot_ms": hot_ms,
-                     "eager_call_ms": call_ms})
+                     "eager_call_ms": call_ms, "path": path})
         print(f"kernel {name} [{shape}]: {ms:.4f} ms on the device from DRAM "
               f"({hot_ms:.4f} ms from L2, {call_ms:.4f} ms per eager call), "
               f"plain {plain_ms:.4f} ms, "
@@ -223,6 +236,50 @@ def kernel_phase():
                                       c2, sel, g),
                68 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words}",
                into=into)
+    # the cone adder's combine at the stem's first level, in place on the
+    # adder's (P, w-1, W) g and p planes at rows 2, 4, ..., w-2 (n = 31 of the
+    # exact plan's w = 64; n = 3 of the reduced plan's w = 8).  Its 20 bytes
+    # per (party, row, word) are g, z_g, z_p read and g, p written; the plain
+    # version does the same in-place update.
+    for w, into in ((64, rows), (8, extra)):
+        n = w // 2 - 1
+        g, p = words(gen, P, w - 1, n_words), words(gen, P, w - 1, n_words)
+        z = words(gen, P, 2 * n, n_words)          # the level's AND output
+        g2, p2 = g.clone(), p.clone()
+        record("ks_level", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:134",
+               lambda: ops.ks_level(g, p, z, 2, 2),
+               lambda: ref.ks_level(g2, p2, z, 2, 2),
+               20 * P * n * n_words, shape=f"P={P} planes={w - 1} n={n} W={n_words}",
+               into=into, path="exact-cone")
+    # the A2B input: bits m..k-1 of the stem's merged shares
+    x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, n_el), generator=gen,
+                      dtype=torch.int64).cuda()
+    for (k, m), into in (((64, 0), rows), ((21, 13), extra)):
+        record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:44",
+               lambda: ops.pack_ring(x, k, m), lambda: ref.pack_ring(x, k, m),
+               8 * P * n_el + 4 * P * (k - m) * n_words,
+               shape=f"P={P} E={n_el} k={k} m={m}", into=into)
+    # the sign plane (w = 1 over the parties' rows), then the triple merge's
+    # unpack of one stream's bin_init (P x w planes of n_el / 4 bits)
+    for rows_, n, into in ((P, n_el, rows), (P * 64, n_el // STREAMS, extra)):
+        packed = words(gen, rows_, 1, (n + 31) // 32)
+        record("unpack", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:60",
+               lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
+               4 * packed.numel() + 4 * rows_ * n,
+               shape=f"R={rows_} w=1 W={packed.shape[-1]} n={n}", into=into)
+    # the triple merge's repack: the 4 streams' bin_init bits, one plane per
+    # row (P x w rows, w = 64 exact and w = 8 reduced)
+    for rows_, into in ((P * 64, rows), (P * 8, extra)):
+        bits = torch.randint(0, 2, (rows_, n_el), generator=gen,
+                             dtype=torch.int32).cuda()
+        record("pack", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:44",
+               lambda: ops.pack(bits, 1), lambda: ref.pack(bits, 1),
+               4 * rows_ * n_el + 4 * rows_ * n_words,
+               shape=f"R={rows_} E={n_el} w=1", into=into)
     # stage-1 conv: each request's stream runs its own convs, so the main
     # path's M is parties x 32 x 32; the 4 requests stacked (M x 4) ride along
     for m, into in ((P * 1024, rows), (P * STREAMS * 1024, extra)):
@@ -241,7 +298,10 @@ def kernel_phase():
 
 
 def main_path_phase():
-    """Full-width ResNet-18, 4 sibling streams, exact and reduced plans."""
+    """Full-width ResNet-18, 4 sibling streams, exact and reduced plans,
+    each with the dense and the cone-pruned adder."""
+    import dataclasses
+
     from repro_torch import api
     from repro_torch.configs import RESNET18
     from repro_torch.core import comm as comm_lib, prng
@@ -265,8 +325,11 @@ def main_path_phase():
     def afn(p, x, relu_fn=None):
         return resnet.apply(p, x, cfg, relu_fn=relu_fn)
 
+    plans = {"exact": plan_exact, "reduced": plan_reduced,
+             "exact-cone": dataclasses.replace(plan_exact, cone=True),
+             "reduced-cone": dataclasses.replace(plan_reduced, cone=True)}
     runs, launches = {}, {}
-    for name, plan in (("exact", plan_exact), ("reduced", plan_reduced)):
+    for name, plan in plans.items():
         cc = comm_lib.CoalescingComm(comm_lib.SimComm())
         model = api.compile(afn, params, cfg, plan,
                             api.Session(key=0, comm=cc, device="cuda"))
@@ -279,9 +342,11 @@ def main_path_phase():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        launched = {k for k, v in counts.items() if v}
+        if launched != PATH_KERNELS[name]:
+            raise AssertionError(
+                f"{name}: launched {sorted(launched)}, its path runs "
+                f"{sorted(PATH_KERNELS[name])}")
         sched = plan.schedule(streams=STREAMS)
         if (cc.n_rounds, cc.bytes_tx) != (sched.n_rounds, sched.bytes_tx):
             raise AssertionError(
@@ -291,8 +356,9 @@ def main_path_phase():
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
         err = float((got - want).abs().max())
-        if name == "exact" and err > ATOL + RTOL * float(want.abs().max()):
-            raise AssertionError(f"exact plan: max error {err} vs plaintext")
+        if name.startswith("exact") and \
+                err > ATOL + RTOL * float(want.abs().max()):
+            raise AssertionError(f"{name} plan: max error {err} vs plaintext")
         for k, v in counts.items():
             launches.setdefault(k, {})[name] = v
         runs[name] = {"wall_s": wall, "rounds": cc.n_rounds,
@@ -338,9 +404,11 @@ def trace_busy(prof):
 def stem_breakdown_phase():
     """Where the time of one ReLU layer goes: the exact plan's stem layer
     (conv + ReLU) for 4 requests, timed by part on the host clock around
-    synchronised work, then once more under torch.profiler for the device's
-    busy share of that one traced run (the profiler slows the host, so the
-    share is likely below the unprofiled run's)."""
+    synchronised work, with the dense and the cone adder in turns (dense,
+    cone, cone, dense; the faster of each pair is kept), then the dense
+    layer once more under torch.profiler for the device's busy share of
+    that one traced run (the profiler slows the host, so the share is
+    likely below the unprofiled run's)."""
     from repro_torch.configs import RESNET18
     from repro_torch.core import beaver, comm as comm_lib, gmw, prng
     from repro_torch.core.mpc_tensor import MPCTensor
@@ -358,24 +426,32 @@ def stem_breakdown_phase():
     def conv():
         return [x.conv2d_public(w, 1, 1).add_public(b[:, None, None]) for x in xs]
 
-    def triples():
-        return [beaver.gen_relu_triples(k, n, 64) for k in keys]
+    def triples(cone=False):
+        return [beaver.gen_relu_triples(k, n, 64, cone=cone) for k in keys]
 
-    def protocol(hs, tris):
+    def protocol(hs, tris, cone=False):
         return gmw.relu_many(keys, [h.data.reshape(2, n) for h in hs], tris,
-                             comm_lib.CoalescingComm(), [(64, 0)] * STREAMS)
+                             comm_lib.CoalescingComm(), [(64, 0)] * STREAMS,
+                             cone=cone)
 
-    def timed(fn, *args):
+    def timed(fn, *args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    protocol(conv(), triples())                     # warm-up
+    for cone in (False, True):                      # warm-up
+        protocol(conv(), triples(cone), cone=cone)
     hs, t_conv = timed(conv)
-    tris, t_triples = timed(triples)
-    _, t_protocol = timed(protocol, hs, tris)
+    parts = {False: [], True: []}
+    for cone in (False, True, True, False):
+        tris, t_triples = timed(triples, cone)
+        _, t_protocol = timed(protocol, hs, tris, cone=cone)
+        parts[cone].append((t_triples, t_protocol))
+    (t_triples, t_protocol), (c_triples, c_protocol) = (
+        tuple(min(t[i] for t in parts[cone]) for i in range(2))
+        for cone in (False, True))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -383,12 +459,14 @@ def stem_breakdown_phase():
         torch.cuda.synchronize()
     busy_us, span_us, n_kernels = trace_busy(prof)
     out = {"conv_s": t_conv, "triples_s": t_triples, "protocol_s": t_protocol,
+           "cone_triples_s": c_triples, "cone_protocol_s": c_protocol,
            "profiled_span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
            "device_kernels": n_kernels, "device_busy_share": busy_us / span_us}
     print(f"stem layer, 4 requests: conv {t_conv:.4f} s, triples "
-          f"{t_triples:.4f} s, protocol {t_protocol:.4f} s; under the "
-          f"profiler: {n_kernels} device ops busy {busy_us / 1e6:.4f} s of a "
-          f"{span_us / 1e6:.4f} s trace = {100 * busy_us / span_us:.1f}%",
+          f"{t_triples:.4f} s, protocol {t_protocol:.4f} s (cone adder: "
+          f"triples {c_triples:.4f} s, protocol {c_protocol:.4f} s); under "
+          f"the profiler: {n_kernels} device ops busy {busy_us / 1e6:.4f} s "
+          f"of a {span_us / 1e6:.4f} s trace = {100 * busy_us / span_us:.1f}%",
           flush=True)
     return out
 
@@ -408,8 +486,8 @@ def main() -> None:
     sass = sass_census()
     runs, launches = main_path_phase()
     breakdown = stem_breakdown_phase()
-    for row in rows + extra:     # launches: the exact plan's run; both beside
-        row["launches"] = launches[row["name"]]["exact"]
+    for row in rows + extra:     # launches: the row's path; all four beside
+        row["launches"] = launches[row["name"]][row.pop("path")]
         row["launches_by_path"] = launches[row["name"]]
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

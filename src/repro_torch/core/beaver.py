@@ -8,13 +8,13 @@ members are int64 ring tensors, binary members int32 packed words.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import errors
 from . import prng, ring, shares
-from .schedule import n_levels
+from .schedule import cone_sets, n_levels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,31 +67,36 @@ class ReluTriples:
       - bin_levels: (L, P, 2w, W) one batched AND triple per level
       - b2a:        (P, E) arithmetic triple for the sign-bit B2A
       - mult:       (P, E) arithmetic triple for the final x * DReLU(x)
+    The cone adder's (``cone=True``, w > 1) are sized to its pruned
+    circuit: bin_init is (P, len(init_pos), W) and bin_levels a tuple of
+    one (P, 2 max(len(pos), 1), W) triple per level (ragged).
     """
 
     bin_init: BinTriple
-    bin_levels: BinTriple
+    bin_levels: Union[BinTriple, Tuple[BinTriple, ...]]
     b2a: ArithTriple
     mult: ArithTriple
 
 
-def _no_cone(cone: bool) -> None:
-    if cone:
-        raise NotImplementedError(
-            "the MSB-cone-pruned adder is not ported yet (see ROADMAP.md)")
-
-
 def gen_relu_triples(key: torch.Tensor, n_elements: int, w: int,
                      n_parties: int = 2, cone: bool = False) -> ReluTriples:
-    """The dense adder's triples (``cone=True`` is not ported yet)."""
-    _no_cone(cone)
+    """One ReLU's triples, for the dense adder or (``cone=True``) the
+    MSB-cone-pruned one; an empty cone level still draws a 2-row triple,
+    as the reference."""
     W = shares.packed_words(n_elements)
     L = n_levels(w)
     k1, k2, k3, k4 = prng.split(key, 4)
-    bin_init = gen_bin(k1, (w, W), n_parties)
-    levels = [gen_bin(k, (2 * w, W), n_parties) for k in prng.split(k2, max(L, 1))]
-    bin_levels = BinTriple(*(torch.stack([getattr(t, f) for t in levels])
-                             for f in ("a", "b", "c")))
+    level_keys = prng.split(k2, max(L, 1))
+    if cone and w > 1:
+        init_pos, level_sets = cone_sets(w)
+        bin_init = gen_bin(k1, (len(init_pos), W), n_parties)
+        bin_levels = tuple(gen_bin(k, (2 * max(len(pos), 1), W), n_parties)
+                           for k, pos in zip(level_keys, level_sets))
+    else:
+        bin_init = gen_bin(k1, (w, W), n_parties)
+        levels = [gen_bin(k, (2 * w, W), n_parties) for k in level_keys]
+        bin_levels = BinTriple(*(torch.stack([getattr(t, f) for t in levels])
+                                 for f in ("a", "b", "c")))
     return ReluTriples(bin_init, bin_levels,
                        gen_arith(k3, (n_elements,), n_parties),
                        gen_arith(k4, (n_elements,), n_parties))
@@ -103,8 +108,8 @@ def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
     the element-wise concatenation of the streams: arithmetic members
     concatenate on the element axis; packed binary members are repacked at
     the bit level, because word boundaries shift when n_i is not a
-    multiple of 32 (tail padding bits pack to the all-zero triple)."""
-    _no_cone(cone)
+    multiple of 32 (tail padding bits pack to the all-zero triple).  The
+    cone's ragged per-level tuples merge level by level."""
     if len(bundles) != len(n_list):
         raise ValueError(f"concat_relu_triples: {len(bundles)} bundles vs "
                          f"{len(n_list)} element counts")
@@ -120,8 +125,12 @@ def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
         return ArithTriple(*(torch.cat([getattr(t, f) for t in members], dim=-1)
                              for f in ("a", "b", "c")))
 
-    return ReluTriples(cat_bin([b.bin_init for b in bundles]),
-                       cat_bin([b.bin_levels for b in bundles]),
+    if cone and w > 1:
+        bin_levels = tuple(cat_bin([b.bin_levels[lvl] for b in bundles])
+                           for lvl in range(len(bundles[0].bin_levels)))
+    else:
+        bin_levels = cat_bin([b.bin_levels for b in bundles])
+    return ReluTriples(cat_bin([b.bin_init for b in bundles]), bin_levels,
                        cat_arith([b.b2a for b in bundles]),
                        cat_arith([b.mult for b in bundles]))
 

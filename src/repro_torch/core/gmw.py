@@ -12,21 +12,23 @@ per communication round and is sent the peer's payload back:
 
 ``drive`` runs one generator with one ``comm.swap`` per round;
 ``run_streams`` / ``relu_many`` advance sibling generators in lockstep and
-coalesce each round into ONE exchange.  Round-local compute of the dense
-Kogge-Stone adder runs in the CUDA kernels of ``kernels/ops.py``
-(``beaver_and``, ``ks_mask``, ``ks_combine``).  Shares are bit-identical
-to the reference for the same keys, triples and inputs.
-
-The MSB-cone-pruned adder (``cone=True``) is not ported yet and raises.
+coalesce each round into ONE exchange.  Round-local compute runs in the
+CUDA kernels of ``kernels/ops.py``: ``pack_ring`` packs the reduced-ring
+bits straight from the shares, the dense Kogge-Stone adder runs on
+``beaver_and``, ``ks_mask`` and ``ks_combine``, the MSB-cone-pruned adder
+(``cone=True``) on ``beaver_and`` and ``ks_level``, and ``unpack`` opens
+the sign plane.  Shares are bit-identical to the reference for the same
+keys, triples and inputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..kernels import ops as kops
-from . import beaver, comm as comm_lib, prng, ring, schedule as schedule_lib, shares
+from . import beaver, comm as comm_lib, prng, schedule as schedule_lib, shares
 
 
 # ---------------------------------------------------------------------------
@@ -80,12 +82,6 @@ def _sel_words(comm, template: torch.Tensor) -> torch.Tensor:
     return torch.where(p0, -1, 0).to(torch.int32)
 
 
-def _no_cone(cone: bool) -> None:
-    if cone:
-        raise NotImplementedError(
-            "the MSB-cone-pruned adder is not ported yet (see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Secure AND on packed binary shares (one communication round)
 # ---------------------------------------------------------------------------
@@ -112,13 +108,17 @@ def and_open(x, y, triple: beaver.BinTriple, comm) -> torch.Tensor:
 
 def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
                       cone: bool):
-    """Round generator for the MSB of (x + y mod 2^w): the initial AND,
-    then per level one ``ks_mask`` pass, one exchange and one
-    ``ks_combine`` pass."""
-    _no_cone(cone)
+    """Round generator for the MSB of (x + y mod 2^w).  Dense: the initial
+    AND, then per level one ``ks_mask`` pass, one exchange and one
+    ``ks_combine`` pass.  Cone: only the backward cone of the carry into
+    bit w-1 (``schedule.cone_sets``); each non-empty level is one AND round
+    and one ``ks_level`` combine."""
     p0 = xw ^ yw                      # initial propagate (local)
     if w == 1:
         return p0[..., 0, :]
+    if cone:
+        g = yield from _cone_generate_rounds(xw, yw, p0, triples, comm, w)
+        return p0[..., w - 1, :] ^ g[..., w - 2, :]
     g = yield from _and_open_rounds(xw, yw, triples.bin_init, comm)
     p = p0
     sel = _sel_words(comm, xw)
@@ -130,6 +130,47 @@ def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
                                tri.a, tri.b, tri.c, sel, g)
     # carry into bit (w-1) is the prefix-generate of bit (w-2)
     return p0[..., w - 1, :] ^ g[..., w - 2, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _cone_levels(w: int):
+    """The cone's static layout, once per w: per non-empty level, its
+    number and the first, step and count of the positions it updates.
+    Every level's positions step by 2^(level+1) (``schedule.cone_sets``),
+    so each is a strided slice of the planes; the initial AND covers
+    planes 0..w-2."""
+    init_pos, level_sets = schedule_lib.cone_sets(w)
+    assert init_pos == list(range(w - 1))
+    levels = []
+    for lvl, pos in enumerate(level_sets):
+        if pos:
+            step = 2 << lvl
+            assert pos == list(range(pos[0], pos[-1] + 1, step))
+            levels.append((lvl, pos[0], step, len(pos)))
+    return tuple(levels)
+
+
+def _rows(first: int, step: int, n: int) -> slice:
+    return slice(first, first + step * (n - 1) + 1, step)
+
+
+def _cone_generate_rounds(xw, yw, p0, triples: beaver.ReluTriples, comm,
+                          w: int):
+    """The cone adder's prefix generates as dense (P, w-1, W) planes: the
+    reference's per-position dicts become strided slices, updated in place
+    by one ``ks_level`` launch per level.  Planes outside the cone are
+    never read.  Levels whose cone slice is empty run no round."""
+    g = yield from _and_open_rounds(xw[..., :w - 1, :], yw[..., :w - 1, :],
+                                    triples.bin_init, comm)
+    p = p0[..., :w - 1, :].clone(memory_format=torch.contiguous_format)
+    for lvl, first, step, n in _cone_levels(w):
+        p_at = p[..., _rows(first, step, n), :]
+        src = _rows(first - (1 << lvl), step, n)      # 2^level below each
+        rhs = torch.cat([g[..., src, :], p[..., src, :]], dim=-2)
+        z = yield from _and_open_rounds(torch.cat([p_at, p_at], dim=-2), rhs,
+                                        triples.bin_levels[lvl], comm)  # one round
+        kops.ks_level(g, p, z, first, step)
+    return g
 
 
 def adder_msb(xw, yw, triples: beaver.ReluTriples, comm, w: int,
@@ -211,11 +252,7 @@ def _drelu_rounds(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
                   k: int, m: int, cone: bool):
     w = k - m
     n = x.shape[-1]
-    if w <= 32:
-        planes = ring.bitplanes_u32(ring.extract_bits(x, k, m), w)   # (w, P, E)
-    else:
-        planes = ring.extract_planes(x, k, m)                         # (w, P, E)
-    packed = shares.pack_bits(planes.movedim(0, 1))                   # (P, w, W)
+    packed = kops.pack_ring(x.contiguous(), k, m)                     # (P, w, W)
     x0s, x1s = yield from _a2b_prepare_rounds(key, packed, comm)      # 1 round
     sign_packed = yield from _adder_msb_rounds(x0s, x1s, triples, comm, w, cone)
     sign_bits = shares.unpack_bits(sign_packed, n)                    # (P, E)

@@ -7,8 +7,8 @@ both the CPU and the GPU, and its add, sub, mul and left shift wrap modulo
 element.  Signed interpretation is applied only at fixed-point decode.
 
 Shifts: ``>>`` on int64 is arithmetic, so logical right shifts mask the
-vacated high bits.  Bit planes and reduced-ring values are int64 holding
-at most 32 significant bits (the reference's uint32).
+vacated high bits.  The reduced-ring bits x[k:m] are taken straight from
+the int64 shares and packed by ``kernels.ops.pack_ring``.
 
 Add, sub, neg and mul are the tensor operators (``+ - * -x``), which wrap
 modulo 2^64; this module holds what is not an operator.  Converters at the
@@ -68,30 +68,9 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Shifts and bit extraction
+# Shifts (bit extraction for the A2B input is the ``pack_ring`` kernel)
 # ---------------------------------------------------------------------------
 
 def rshift_arith(a: torch.Tensor, n: int) -> torch.Tensor:
     """Arithmetic (sign-extending) right shift of the 64-bit value."""
     return a >> n if n else a
-
-
-def extract_bits(a: torch.Tensor, k: int, m: int) -> torch.Tensor:
-    """x[k:m]: bits m..k-1 as a value of the reduced ring Z/2^(k-m)
-    (k - m <= 32; ``extract_planes`` covers the exact w = 64 path)."""
-    w = k - m
-    assert 0 < w <= 32 and 0 <= m and k <= 64
-    return (a >> m) & ((1 << w) - 1)
-
-
-def bitplanes_u32(v: torch.Tensor, w: int) -> torch.Tensor:
-    """(...,) values -> (w, ...) planes in {0, 1}, LSB first."""
-    idx = torch.arange(w, dtype=v.dtype, device=v.device)
-    return (v[None] >> idx.reshape((w,) + (1,) * v.ndim)) & 1
-
-
-def extract_planes(a: torch.Tensor, k: int, m: int) -> torch.Tensor:
-    """Bits m..k-1 as (k-m, ...) planes in {0, 1} (w up to 64).  Arithmetic
-    shifts only fill bits above 63, so no mask is needed."""
-    assert 0 <= m < k <= 64
-    return bitplanes_u32(a >> m, k - m)

@@ -10,8 +10,11 @@ reference's uint32; CUDA kernels read the same memory as ``uint32_t``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..kernels import ops as kops
 from . import prng, ring
 
 
@@ -37,7 +40,7 @@ def reconstruct(xs: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Bit packing (plain torch, as the reference's jnp path)
+# Bit packing (the ``pack`` and ``unpack`` kernels, one bit per plane row)
 # ---------------------------------------------------------------------------
 
 def packed_words(n_elements: int) -> int:
@@ -46,22 +49,16 @@ def packed_words(n_elements: int) -> int:
 
 def pack_bits(planes: torch.Tensor) -> torch.Tensor:
     """(..., w, E) {0, 1} -> (..., w, W) int32 packed words (E padded)."""
-    e = planes.shape[-1]
-    n_words = packed_words(e)
-    pad = n_words * 32 - e
-    if pad:
-        planes = torch.nn.functional.pad(planes, (0, pad))
-    grouped = planes.reshape(planes.shape[:-1] + (n_words, 32)).to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=planes.device)
-    return (grouped << shifts).sum(dim=-1).to(torch.int32)
+    lead, e = tuple(planes.shape[:-1]), planes.shape[-1]
+    rows = planes.reshape(math.prod(lead), e).to(torch.int32).contiguous()
+    return kops.pack(rows, 1).reshape(lead + (packed_words(e),))
 
 
 def unpack_bits(words: torch.Tensor, n_elements: int) -> torch.Tensor:
     """(..., W) packed words -> (..., E) {0, 1} int32."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = (words[..., None] >> shifts) & 1
-    flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,))
-    return flat[..., :n_elements]
+    lead = tuple(words.shape[:-1])
+    planes = words.reshape(math.prod(lead), 1, words.shape[-1]).contiguous()
+    return kops.unpack(planes, n_elements).reshape(lead + (n_elements,))
 
 
 def xor_share_packed(key: torch.Tensor, words: torch.Tensor,

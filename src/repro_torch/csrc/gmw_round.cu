@@ -4,17 +4,24 @@
 //   hb_beaver_and  <- beaver_and_pallas  (:45)
 //   hb_ks_mask     <- ks_mask_pallas     (:73)
 //   hb_ks_combine  <- ks_combine_pallas  (:105)
+//   hb_ks_level    <- ks_level_pallas    (:134)
 //
-// All three are XOR/AND chains over uint32 words: a few integer operations
+// All four are XOR/AND chains over uint32 words: a few integer operations
 // per 4-byte word, far below the card's operations-per-byte balance, so
 // device-memory bandwidth bounds them.  The design reads each input word
 // once and writes each output word once, with neighbouring threads on
 // neighbouring words (coalesced).  The Beaver selector is one word per
 // party, read from a (P,) vector instead of a full broadcast array, which
-// removes one input stream from beaver_and and ks_combine.  At the main
-// path's sizes (a few MB per call) launch latency dominates the bandwidth
-// bound; fusing the round's passes or capturing the round loop in a CUDA
-// graph is later work.
+// removes one input stream from beaver_and and ks_combine.  ks_level, the
+// cone adder's per-level combine, updates the adder's dense g and p planes
+// in place at the level's strided rows, reading the two halves of the
+// level's AND output where they lie (party stride given): one pass per
+// level, no gather or scatter around it.  Its bound is 20 bytes per
+// (party, level row, word): g, z_g and z_p read, g and p written, all of
+// them inputs or outputs the cone adder needs.
+// At the main path's sizes (a few MB per call) launch latency dominates the
+// bandwidth bound; fusing the round's passes or capturing the round loop in
+// a CUDA graph is later work.
 //
 // Layouts (row-major, party dimension leading):
 //   beaver_and  d, e, a, b, c, out: (P, per_party) words; sel: (P,)
@@ -22,6 +29,9 @@
 //   ks_combine  d, e, a, b, c: (P, 2w, W); g, g_out, p_out: (P, w, W);
 //               d_other, e_other: rows of (2w, W) per party, party stride
 //               given (they are views into the received round buffer).
+//   ks_level    g, p: (P, planes, W), updated in place at rows first +
+//               i * step, i < n; z: rows of (2n, W) per party, party
+//               stride given (the level's AND output: z_g, then z_p).
 // Each entry point launches on the given stream and returns
 // cudaGetLastError().
 
@@ -106,6 +116,25 @@ __global__ void ks_combine_kernel(const uint32_t* __restrict__ d,
   p_out[o] = z[1];
 }
 
+__global__ void ks_level_kernel(uint32_t* __restrict__ g,
+                                uint32_t* __restrict__ p,
+                                const uint32_t* __restrict__ z,
+                                int64_t z_stride, int64_t planes, int64_t first,
+                                int64_t step, int64_t n, int64_t words) {
+  // grid: (word blocks, level row i, party)
+  const int64_t i = blockIdx.y;
+  const int64_t party = blockIdx.z;
+  const int64_t row = (party * planes + first + i * step) * words;
+  const uint32_t* z_g = z + party * z_stride + i * words;
+  const uint32_t* z_p = z_g + n * words;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       j < words; j += stride) {
+    g[row + j] ^= z_g[j];
+    p[row + j] = z_p[j];
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(blocks < 65535 ? blocks : 65535);
@@ -159,5 +188,17 @@ extern "C" int hb_ks_combine(const void* d, const void* d_other,
       static_cast<const uint32_t*>(c), static_cast<const uint32_t*>(sel),
       static_cast<const uint32_t*>(g), static_cast<uint32_t*>(g_out),
       static_cast<uint32_t*>(p_out), static_cast<int>(w), words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hb_ks_level(void* g, void* p, const void* z, int64_t z_stride,
+                           int64_t n_parties, int64_t planes, int64_t first,
+                           int64_t step, int64_t n, int64_t words,
+                           void* stream) {
+  const dim3 grid(blocks_for(words), static_cast<unsigned int>(n),
+                  static_cast<unsigned int>(n_parties));
+  ks_level_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(g), static_cast<uint32_t*>(p),
+      static_cast<const uint32_t*>(z), z_stride, planes, first, step, n, words);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,13 +19,20 @@ the card (design notes in the CUDA sources):
   per (party, plane of w, word).
 - ``ks_combine``: ``kernels/gmw_round.py:105`` ``ks_combine_pallas``;
   bytes, 68 per (party, plane of w, word).
+- ``ks_level``: ``kernels/gmw_round.py:134`` ``ks_level_pallas``; bytes,
+  20 per (party, level plane, word), in place on the adder's planes.
 - ``ring_matmul``: ``kernels/ring_matmul.py:88`` ``ring_matmul_pallas``;
   operations, the int32 IMAD rate (no 64-bit multiplier on the card).
+- ``pack`` and ``pack_ring``: ``kernels/bitpack.py:44`` ``pack_pallas``;
+  bytes, each value read once (4 or 8 bytes) and 4 per word written.
+- ``unpack``: ``kernels/bitpack.py:60`` ``unpack_pallas``; bytes, 4 per
+  word read and 4 per value written.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -39,7 +46,11 @@ _SIGNATURES = {
     "hb_ks_mask": ("gmw_round.cu", [_P] * 6 + [_I] * 4 + [_P]),
     "hb_ks_combine": ("gmw_round.cu",
                       [_P, _P, _I, _P, _P, _I] + [_P] * 7 + [_I] * 3 + [_P]),
+    "hb_ks_level": ("gmw_round.cu", [_P, _P, _P] + [_I] * 7 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
+    "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
+    "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P]),
+    "hb_unpack": ("bitpack.cu", [_P, _I, _I, _I, _I, _P, _P]),
 }
 
 
@@ -164,6 +175,97 @@ def ks_combine(d, d_other, e, e_other, a, b, c, sel, g):
     return g_out, p_out
 
 
+def ks_level(g, p, z, first: int, step: int):
+    """Cone-adder level combine, in place on (P, planes, W) int32 words g
+    and p: with n = z.shape[1] // 2 and the level's planes first,
+    first + step, ..., g[:, rows] ^= z[:, :n] and p[:, rows] = z[:, n:].
+    z is the level's (P, 2n, W) AND output; its rows after the party dim
+    must be contiguous (any party stride).  Returns (g, p)."""
+    if _on_cpu(g):
+        return ref.ks_level(g, p, z, first, step)
+    name = "ks_level"
+    _check(name, [g, p], torch.int32)
+    _check(name, [z], torch.int32, contiguous=False)
+    if g.ndim != 3 or p.shape != g.shape or z.ndim != 3:
+        raise ValueError(f"{name}: expected g, p of one (P, planes, W) shape "
+                         f"and z (P, 2n, W), got {tuple(g.shape)}, "
+                         f"{tuple(p.shape)}, {tuple(z.shape)}")
+    n_parties, planes, n_words = g.shape
+    n = z.shape[1] // 2
+    if tuple(z.shape) != (n_parties, 2 * n, n_words):
+        raise ValueError(f"{name}: z must be ({n_parties}, 2n, {n_words}), got "
+                         f"{tuple(z.shape)}")
+    if n and (first < 0 or step < 1 or first + step * (n - 1) >= planes):
+        raise ValueError(f"{name}: rows {first}:{step}:x{n} outside {planes} planes")
+    if n and n_words:
+        _launch("hb_ks_level", g.data_ptr(), p.data_ptr(), z.data_ptr(),
+                _party_rows(name, z), n_parties, planes, int(first), int(step),
+                n, n_words)
+        ks_level.launches += 1
+    return g, p
+
+
+def _packed_shape(name: str, v: torch.Tensor, w: int):
+    if v.ndim < 1:
+        raise ValueError(f"{name}: expected (..., E) values")
+    lead, n = tuple(v.shape[:-1]), v.shape[-1]
+    return lead, n, lead + (w, (n + 31) // 32)
+
+
+def pack(v: torch.Tensor, w: int) -> torch.Tensor:
+    """(..., E) int32 values -> (..., w, ceil(E/32)) int32 words: bit t of
+    word (i, j) is bit i of value 32j + t; tail bits zero; 1 <= w <= 32."""
+    if _on_cpu(v):
+        return ref.pack(v, w)
+    _check("pack", [v], torch.int32)
+    if not 1 <= w <= 32:
+        raise ValueError(f"pack: w = {w} outside 1..32")
+    lead, n, shape = _packed_shape("pack", v, w)
+    out = torch.empty(shape, dtype=torch.int32, device=v.device)
+    if out.numel():
+        _launch("hb_pack", v.data_ptr(), math.prod(lead), n, out.data_ptr(), w)
+        pack.launches += 1
+    return out
+
+
+def pack_ring(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """(..., E) int64 ring values -> (..., k - m, ceil(E/32)) int32 words
+    of bits m..k-1 (0 <= m < k <= 64): the reduced-ring A2B input, packed
+    straight from the shares."""
+    if _on_cpu(x):
+        return ref.pack_ring(x, k, m)
+    _check("pack_ring", [x], torch.int64)
+    if not 0 <= m < k <= 64:
+        raise ValueError(f"pack_ring: (k, m) = ({k}, {m}) outside 0 <= m < k <= 64")
+    lead, n, shape = _packed_shape("pack_ring", x, k - m)
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    if out.numel():
+        _launch("hb_pack_ring", x.data_ptr(), math.prod(lead), n,
+                out.data_ptr(), k, m)
+        pack_ring.launches += 1
+    return out
+
+
+def unpack(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., w, W) int32 words -> (..., n) int32 values, n <= 32 W: value e
+    holds bit e of plane i at bit i (w <= 32)."""
+    if _on_cpu(words):
+        return ref.unpack(words, n)
+    _check("unpack", [words], torch.int32)
+    if words.ndim < 2 or not 1 <= words.shape[-2] <= 32 \
+            or not 0 <= n <= 32 * words.shape[-1]:
+        raise ValueError(f"unpack: {tuple(words.shape)} words cannot hold "
+                         f"{n} values of at most 32 planes")
+    lead = tuple(words.shape[:-2])
+    w, n_words = words.shape[-2:]
+    out = torch.empty(lead + (n,), dtype=torch.int32, device=words.device)
+    if out.numel():
+        _launch("hb_unpack", words.data_ptr(), math.prod(lead), w, n_words, n,
+                out.data_ptr())
+        unpack.launches += 1
+    return out
+
+
 def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int64 ring [M, K] @ public int32 [K, N] mod 2^64 -> int64 [M, N]."""
     if _on_cpu(x):
@@ -186,7 +288,8 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-KERNELS = (beaver_and, ks_mask, ks_combine, ring_matmul)
+KERNELS = (beaver_and, ks_mask, ks_combine, ks_level, ring_matmul, pack,
+           pack_ring, unpack)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's four CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 The wrappers in ``kernels/ops.py`` run these for CPU tensors; the tests and
 ``chip_smoke.py`` hold each CUDA kernel against them on the card.  Packed
@@ -43,6 +43,48 @@ def ks_combine(d, d_other, e, e_other, a, b, c, sel, g):
     z = beaver_and(d ^ d_other, e ^ e_other, a, b, c, sel)
     w = g.shape[-2]
     return g ^ z[..., :w, :], z[..., w:, :]
+
+
+def ks_level(g, p, z, first: int, step: int):
+    """Cone-adder level combine, in place: with n = z.shape[-2] // 2 and the
+    level's planes first, first + step, ..., g[rows] ^= z[:n] and
+    p[rows] = z[n:], the reference's ``(g ^ z_g, z_p)`` at those planes."""
+    n = z.shape[-2] // 2
+    rows = slice(first, first + step * (n - 1) + 1, step)
+    g[..., rows, :] ^= z[..., :n, :]
+    p[..., rows, :] = z[..., n:, :]
+    return g, p
+
+
+def pack(v: torch.Tensor, w: int, shift: int = 0) -> torch.Tensor:
+    """(..., E) values -> (..., w, W) int32 words, W = ceil(E/32): bit t of
+    word (i, j) is bit ``shift + i`` of value 32j + t (tail bits zero).
+    ``shift + w`` is at most 32 for int32 values and 64 for int64 ones."""
+    e = v.shape[-1]
+    n_words = (e + 31) // 32
+    v = torch.nn.functional.pad(v.to(torch.int64), (0, n_words * 32 - e))
+    grouped = v.reshape(v.shape[:-1] + (1, n_words, 32))
+    planes = torch.arange(shift, shift + w, dtype=torch.int64,
+                          device=v.device).reshape(w, 1, 1)
+    lanes = torch.arange(32, dtype=torch.int64, device=v.device)
+    bits = (grouped >> planes) & 1                          # (..., w, W, 32)
+    return (bits << lanes).sum(dim=-1).to(torch.int32)
+
+
+def pack_ring(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """int64 ring values (..., E) -> (..., k - m, W) words of bits m..k-1."""
+    return pack(x, k - m, shift=m)
+
+
+def unpack(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., w, W) words -> (..., n) int32 values: value e is the sum over
+    planes i of bit e of plane i, shifted to bit i (w <= 32)."""
+    w = words.shape[-2]
+    lanes = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> lanes) & 1  # (..., w, W, 32)
+    bits = bits.reshape(words.shape[:-1] + (-1,))[..., :n]
+    planes = torch.arange(w, dtype=torch.int64, device=words.device)
+    return (bits << planes[:, None]).sum(dim=-2).to(torch.int32)
 
 
 def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

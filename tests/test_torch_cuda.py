@@ -45,4 +45,43 @@ def test_cuda_kernels_equal_plain_versions():
         assert torch.equal(ops.ring_matmul(x, wt), tref.ring_matmul(x, wt))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"beaver_and": 3, "ks_mask": 5,
-                                   "ks_combine": 3, "ring_matmul": 3}
+                                   "ks_combine": 3, "ks_level": 0,
+                                   "ring_matmul": 3, "pack": 0, "pack_ring": 0,
+                                   "unpack": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_ks_level_and_bitpack_equal_plain_versions():
+    """ks_level in place at strided rows, reading a party-strided AND output,
+    pack / pack_ring / unpack at ragged element counts and every width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(1)
+
+    def ints(dtype, *shape):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             dtype=torch.int64).to(dtype).cuda()
+
+    ops.reset_launches()
+    for planes, first, step, n, n_words in ((1, 0, 2, 1, 1), (63, 2, 2, 31, 77),
+                                            (7, 6, 4, 1, 300)):
+        g, p = ints(torch.int32, 2, planes, n_words), ints(torch.int32, 2, planes, n_words)
+        z = ints(torch.int32, 2, 3, 2 * n, n_words)[:, 1]   # party stride 3x
+        for u, v in zip(ops.ks_level(g.clone(), p.clone(), z, first, step),
+                        tref.ks_level(g.clone(), p.clone(), z, first, step)):
+            assert torch.equal(u, v)
+    for e in (1, 33, 1000, 70000):
+        x = ints(torch.int64, 2, e)
+        for k, m in ((64, 0), (21, 13), (45, 12), (22, 13), (14, 13)):
+            assert torch.equal(ops.pack_ring(x, k, m), tref.pack_ring(x, k, m))
+        v = ints(torch.int32, 3, e)
+        for w in (1, 8, 32):
+            packed = ops.pack(v, w)
+            assert torch.equal(packed, tref.pack(v, w))
+            assert torch.equal(ops.unpack(packed, e), tref.unpack(packed, e))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in ("ks_level", "pack", "pack_ring", "unpack")} \
+        == {"ks_level": 3, "pack": 12, "pack_ring": 20, "unpack": 12}
+

@@ -28,7 +28,11 @@ def _same(jr, t):
 
 
 def _same_triples(jt, tt):
-    for jb, tb in ((jt.bin_init, tt.bin_init), (jt.bin_levels, tt.bin_levels)):
+    jbins, tbins = [jt.bin_init], [tt.bin_init]
+    for bins, levels in ((jbins, jt.bin_levels), (tbins, tt.bin_levels)):
+        bins.extend(levels if isinstance(levels, tuple) else [levels])
+    assert len(jbins) == len(tbins)
+    for jb, tb in zip(jbins, tbins):
         for f in ("a", "b", "c"):
             np.testing.assert_array_equal(getattr(tb, f).numpy(),
                                           np.asarray(getattr(jb, f)).view(np.int32))
@@ -84,6 +88,65 @@ def test_relu_many_merged_ragged_and_culled():
     _same_triples(jmerged, merged)
 
 
+@pytest.mark.parametrize("w", [8, 9, 33, 64])
+def test_cone_triples_bit_identical(w):
+    """Cone triples: ragged per-level tuples (w = 9 and 33 have an empty
+    top level, which still draws a 2-row triple), same key splits; two
+    streams merged level by level, as relu_many merges siblings."""
+    jt = [jbeaver.gen_relu_triples(jax.random.PRNGKey(70 + i), N, w, cone=True)
+          for i in range(2)]
+    tt = [tbeaver.gen_relu_triples(prng.PRNGKey(70 + i, "cpu"), N, w, cone=True)
+          for i in range(2)]
+    for j, t in zip(jt, tt):
+        _same_triples(j, t)
+    _same_triples(jbeaver.concat_relu_triples(jt, [N, N], w, cone=True),
+                  tbeaver.concat_relu_triples(tt, [N, N], w, cone=True))
+
+
+@pytest.mark.parametrize("k,m", [(64, 0), (21, 13), (22, 13), (14, 13)])
+def test_cone_relu_shares_bit_identical(k, m):
+    """The MSB-cone-pruned adder: shares bit-identical to the reference's
+    cone path (w = 9 runs an empty level), counters equal
+    ``simulate(cone=True)``."""
+    x, js, ts = _shares(1, N)
+    jt = jbeaver.gen_relu_triples(jax.random.PRNGKey(2), N, k - m, cone=True)
+    tt = tbeaver.gen_relu_triples(prng.PRNGKey(2, "cpu"), N, k - m, cone=True)
+    jout = jgmw.relu(jax.random.PRNGKey(3), js, jt, jcomm.SimComm(), k=k, m=m,
+                     cone=True)
+    cm = tcomm.CountingComm()
+    tout = tgmw.relu(prng.PRNGKey(3, "cpu"), ts, tt, cm, k=k, m=m, cone=True)
+    _same(jout, tout)
+    sched = schedule.simulate([(N, k - m, (N, k, m))], cone=True)
+    assert (cm.n_swaps, cm.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
+
+
+def test_cone_relu_many_counts_equal_schedule():
+    """Cone relu_many over merged, ragged and culled groups: shares equal
+    the reference's, fused rounds and bytes equal ``simulate(cone=True)``."""
+    specs = [(N, 21, 13), (N, 21, 13), (N // 2, 20, 14), (N, 13, 13)]
+    jx, tx, jk, tk = [], [], [], []
+    for i, (n, k, m) in enumerate(specs):
+        _, js, ts = _shares(10 + i, n)
+        jx.append(js)
+        tx.append(ts)
+        jk.append(jax.random.PRNGKey(30 + i))
+        tk.append(prng.PRNGKey(30 + i, "cpu"))
+    jtr = [jbeaver.gen_relu_triples(jax.random.PRNGKey(20 + i), n, k - m, cone=True)
+           for i, (n, k, m) in enumerate(specs)]
+    ttr = [tbeaver.gen_relu_triples(prng.PRNGKey(20 + i, "cpu"), n, k - m, cone=True)
+           for i, (n, k, m) in enumerate(specs)]
+    kms = [(k, m) for _, k, m in specs]
+    jouts = jgmw.relu_many(jk, jx, jtr, jcomm.SimComm(), kms, cone=True)
+    cc = tcomm.CoalescingComm()
+    touts = tgmw.relu_many(tk, tx, ttr, cc, kms, cone=True)
+    for jo, to in zip(jouts, touts):
+        _same(jo, to)
+    sched = schedule.simulate([(n, k - m, (n, k, m)) for n, k, m in specs],
+                              cone=True)
+    assert (cc.n_rounds, cc.bytes_tx, tuple(cc.round_parts)) == \
+        (sched.n_rounds, sched.bytes_tx, sched.round_parts)
+
+
 def _bench_shares(n: int, k: int, m: int, seed: int):
     x = np.random.default_rng(seed).uniform(-3.5, 3.5, n).astype(np.float32)
     xs = tshares.share(prng.PRNGKey(50 + seed, "cpu"), tfixed.encode_np(x, device="cpu"))
@@ -110,15 +173,6 @@ def test_bench_multigroup_counts():
                    cc, [(k, m) for _, k, m in specs])
     assert (cc.n_rounds, cc.bytes_tx) == (10, 696576)
     assert sum(tgmw.n_rounds(k - m) for _, k, m in specs) == 31
-
-
-def test_cone_is_not_ported():
-    _, _, ts = _shares(1, 8)
-    with pytest.raises(NotImplementedError):
-        tbeaver.gen_relu_triples(prng.PRNGKey(0, "cpu"), 8, 8, cone=True)
-    tt = tbeaver.gen_relu_triples(prng.PRNGKey(0, "cpu"), 8, 8)
-    with pytest.raises(NotImplementedError):
-        tgmw.relu(prng.PRNGKey(1, "cpu"), ts, tt, tcomm.SimComm(), k=21, m=13, cone=True)
 
 
 def test_single_round_drivers_bit_identical():

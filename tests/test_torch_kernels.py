@@ -1,4 +1,4 @@
-"""The port's four kernels: plain versions against the reference's
+"""The port's kernels: plain versions against the reference's
 ``kernels/ref.py``, its Pallas kernels in interpret mode and the jnp path
 its main path runs (the CUDA kernels themselves: tests/test_torch_cuda.py).
 All comparisons are bit-exact."""
@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import ring as jring, ring_linalg as jlinalg
-from repro.kernels import gmw_round, ref as jref
-from repro_torch.core import ring as tring
+from repro.core import ring as jring, ring_linalg as jlinalg, shares as jshares
+from repro.kernels import bitpack, gmw_round, ref as jref
+from repro_torch.core import ring as tring, shares as tshares
 from repro_torch.kernels import ops, ref as tref
 
 SEL = np.array([0xFFFFFFFF, 0], np.uint32)     # all-ones on party 0
@@ -84,6 +84,56 @@ def test_ks_combine_plain_vs_ref_and_pallas(w):
         np.testing.assert_array_equal(p_t.numpy(), _i32(want[1]))
 
 
+def test_ks_level_plain_vs_ref_and_pallas():
+    """In place on (P, planes, W) g and p at the strided rows 1, 3, ..., 15
+    (a cone level's layout; the Pallas kernel takes rows in blocks of 8),
+    per party against the (rows, W) Pallas kernel and its plain reference;
+    z is the level's (P, 2n, W) AND output, and the rows outside the level
+    stay as they were."""
+    rng = np.random.default_rng(6)
+    g, p, z = _words(rng, 2, 17, 256), _words(rng, 2, 17, 256), _words(rng, 2, 16, 256)
+    g_t, p_t = tref.ks_level(_t(g.copy()), _t(p.copy()), _t(z), 1, 2)
+    rows = list(range(1, 16, 2))
+    for party in range(2):
+        args = [jnp.asarray(x) for x in (g[party, rows], z[party, :8], z[party, 8:])]
+        for want in (jref.ks_level(*args),
+                     gmw_round.ks_level_pallas(*args, interpret=True)):
+            g_want, p_want = _i32(g[party]).copy(), _i32(p[party]).copy()
+            g_want[rows], p_want[rows] = _i32(want[0]), _i32(want[1])
+            np.testing.assert_array_equal(g_t[party].numpy(), g_want)
+            np.testing.assert_array_equal(p_t[party].numpy(), p_want)
+
+
+@pytest.mark.parametrize("w", [1, 8, 32])
+def test_pack_unpack_plain_vs_ref_and_pallas(w):
+    """(E,) values with w significant bits, E a multiple of 32 x 128."""
+    rng = np.random.default_rng(7)
+    v = _words(rng, 8192) & np.uint32((1 << w) - 1 if w < 32 else 0xFFFFFFFF)
+    packed = tref.pack(_t(v), w)
+    for want in (jref.pack(jnp.asarray(v), w),
+                 bitpack.pack_pallas(jnp.asarray(v), w, block_words=128)):
+        np.testing.assert_array_equal(packed.numpy(), _i32(want))
+    got = tref.unpack(packed, v.size)
+    np.testing.assert_array_equal(got.numpy(), _i32(v))
+    words = jnp.asarray(packed.numpy().view(np.uint32))
+    for want in (jref.unpack(words, w),
+                 bitpack.unpack_pallas(words, w, block_words=128)):
+        np.testing.assert_array_equal(got.numpy(), _i32(want))
+
+
+def test_shares_packing_routes_through_the_wrappers():
+    """pack_bits / unpack_bits are the pack and unpack kernels with one bit
+    per plane row; ragged E and a leading level axis, as triple merges
+    pass them."""
+    rng = np.random.default_rng(9)
+    bits = rng.integers(0, 2, (3, 2, 5, 77), dtype=np.uint32)
+    want = jshares.pack_bits(jnp.asarray(bits))
+    got = tshares.pack_bits(torch.from_numpy(bits.astype(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), _i32(want))
+    np.testing.assert_array_equal(tshares.unpack_bits(got, 77).numpy(),
+                                  np.asarray(jshares.unpack_bits(want, 77)))
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 128, 128), (5, 40, 12), (33, 300, 7)])
 def test_ring_matmul_plain_vs_ref_jnp_and_oracle(m, k, n):
     rng = np.random.default_rng(4)
@@ -113,5 +163,6 @@ def test_wrappers_take_the_plain_version_on_cpu():
     a = _t(_words(rng, 2, 8, 3))
     assert all(torch.equal(u, v) for u, v in zip(ops.ks_mask(g, g, a, a, 2),
                                                   tref.ks_mask(g, g, a, a, 2)))
-    assert ops.launch_counts() == {"beaver_and": 0, "ks_mask": 0,
-                                   "ks_combine": 0, "ring_matmul": 0}
+    assert ops.launch_counts() == {name: 0 for name in (
+        "beaver_and", "ks_mask", "ks_combine", "ks_level", "ring_matmul", "pack",
+        "pack_ring", "unpack")}

@@ -92,6 +92,17 @@ def test_plan_json_and_digest(models, reduced, tmp_path):
     assert tplan.cost(streams=2).bytes_tx == jplan.cost(streams=2).bytes_tx
 
 
+def test_cone_plan_json_and_digest(models):
+    """``trace(..., cone=True)``: the cone flag rides the plan's JSON and
+    digest, byte-identical to the reference's."""
+    jp, tp = models
+    jplan = jres.trace(jp, JSMOKE, 1, HW, cone=True)
+    tplan = tres.trace(tp, TSMOKE, 1, HW, cone=True)
+    assert tplan.cone and tplan.to_json() == jplan.to_json()
+    assert tplan.digest() == jplan.digest() != tres.trace(tp, TSMOKE, 1, HW).digest()
+    assert tplan.cost(streams=2).bytes_tx == jplan.cost(streams=2).bytes_tx
+
+
 def test_folded_weight_encoding_matches():
     """fold_bn + encode_weights on non-trivial BatchNorm statistics: the
     float32 steps give the same int32 weights and biases in both packages."""
@@ -109,12 +120,10 @@ def test_folded_weight_encoding_matches():
                                       np.asarray(jmpc.encode_weights(j)))
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_private_inference_bit_identical(models, reduced):
-    """2 sibling streams, same session key and input shares: output shares
-    bit-identical; measured rounds and bytes equal plan.schedule(2)."""
+def _private_inference(models, reduced: bool, cone: bool = False):
     jp, tp = models
-    jplan, tplan = jres.trace(jp, JSMOKE, 1, HW), tres.trace(tp, TSMOKE, 1, HW)
+    jplan = jres.trace(jp, JSMOKE, 1, HW, cone=cone)
+    tplan = tres.trace(tp, TSMOKE, 1, HW, cone=cone)
     if reduced:
         jplan, tplan = _reduced(japi, jplan), _reduced(tapi, tplan)
     jcc, tcc = jcomm.CoalescingComm(), tcomm.CoalescingComm()
@@ -140,6 +149,19 @@ def test_private_inference_bit_identical(models, reduced):
                                for x in xs])
         got = np.concatenate([o.reveal_np() for o in touts])
         np.testing.assert_allclose(got, want, atol=2e-2)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_private_inference_bit_identical(models, reduced):
+    """2 sibling streams, same session key and input shares: output shares
+    bit-identical; measured rounds and bytes equal plan.schedule(2)."""
+    _private_inference(models, reduced)
+
+
+def test_private_inference_cone_bit_identical(models):
+    """The same under the reduced plan with ``cone=True``: the
+    MSB-cone-pruned adder (w = 64 cone shares: tests/test_torch_gmw.py)."""
+    _private_inference(models, reduced=True, cone=True)
 
 
 def test_encrypt_matches_reference_shares(models):

@@ -10,6 +10,7 @@ import torch
 from repro.core import comm as jcomm, fixed as jfixed, ring as jring, shares as jshares
 from repro_torch.core import comm as tcomm, fixed as tfixed, prng, ring as tring, \
     shares as tshares
+from repro_torch.kernels import ops, ref as tref
 
 EDGES = np.array([0, 1, 2 ** 63, 2 ** 64 - 1, 2 ** 63 - 1, 2 ** 32, 2 ** 32 - 1],
                  np.uint64)
@@ -52,7 +53,7 @@ def test_neg_and_public_int32_factor():
 @pytest.mark.parametrize("n", [0, 1, 16, 31, 32, 33, 48, 63])
 def test_shifts(n):
     """Left shift is ``<<``; logical right shift is ``>>`` then a mask (the
-    idiom of ``extract_bits``); arithmetic right shift is ``rshift_arith``."""
+    idiom of the reference's ``extract_bits``); arithmetic right shift is ``rshift_arith``."""
     ja, ta = _pair(_values(3))
     _same(jring.lshift(ja, n), ta << n)
     _same(jring.rshift_logical(ja, n), (ta >> n) & ((1 << (64 - n)) - 1))
@@ -60,18 +61,20 @@ def test_shifts(n):
 
 
 @pytest.mark.parametrize("k,m", [(64, 0), (21, 13), (32, 0), (64, 32), (20, 14),
-                                 (1, 0), (64, 63)])
+                                 (1, 0), (64, 63), (45, 12), (22, 13)])
 def test_extract(k, m):
+    """The port extracts and packs bits m..k-1 in one step (``pack_ring``,
+    whose plain version the CPU takes): equal to the reference's
+    extraction (``extract_bits`` + ``bitplanes_u32`` up to w = 32,
+    ``extract_planes`` above, so w = 33 crosses the branch) followed by
+    ``shares.pack_bits``; E is ragged."""
     ja, ta = _pair(_values(4))
-    if k - m <= 32:
-        v = tring.extract_bits(ta, k, m)
-        np.testing.assert_array_equal(v.numpy(),
-                                      np.asarray(jring.extract_bits(ja, k, m)))
-        np.testing.assert_array_equal(
-            tring.bitplanes_u32(v, k - m).numpy(),
-            np.asarray(jring.bitplanes_u32(jring.extract_bits(ja, k, m), k - m)))
-    np.testing.assert_array_equal(tring.extract_planes(ta, k, m).numpy(),
-                                  np.asarray(jring.extract_planes(ja, k, m)))
+    w = k - m
+    planes = (jring.bitplanes_u32(jring.extract_bits(ja, k, m), w) if w <= 32
+              else jring.extract_planes(ja, k, m))
+    want = np.asarray(jshares.pack_bits(planes)).view(np.int32)
+    np.testing.assert_array_equal(ops.pack_ring(ta, k, m).numpy(), want)
+    np.testing.assert_array_equal(tref.pack_ring(ta, k, m).numpy(), want)
 
 
 def test_limb_converters_and_uniform():

@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``tools/ring_matmul_bench.py`` times ring_matmul alone, with this
+script's shapes and timing, for another checkout's kernel or a variant.)
+
 Phases (any failure raises, and the script exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit as
@@ -13,8 +16,11 @@ Phases (any failure raises, and the script exits non-zero):
 3. kernels: call each kernel's wrapper on CUDA tensors at the shapes the
    main path gives it (the stem's ReLU, 4 requests merged), require it to
    equal its plain PyTorch version exactly, and time both with CUDA
-   events (median over trials); read the ring_matmul kernel's IMAD count
-   from its SASS;
+   events (median over trials); ring_matmul at all 12 (M, K, N) the main
+   path gives it, with full-range int32 weights, and its sum per main-path
+   call (launches x ms) beside the card's bound; read the ring_matmul
+   kernel's tensor-core (IMMA) and IMAD counts from its SASS and its
+   registers and spills from ptxas;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
@@ -48,16 +54,16 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet; the Hopper white paper for the SM).
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-# int32 multiply-adds: 64 per clock per SM x 132 SMs x 1.98 GHz boost.
-IMAD_PER_S = 64 * 132 * 1.98e9
-# The least 32-bit IMAD issue slots one 64x32-bit multiply-add mod 2^64
-# needs: with w biased by 2^31 to be unsigned, IMAD.WIDE.U32 (x_lo * w' into
-# the 64-bit sum, two slots) + IMAD (x_hi * w' into the high word); the
-# bias is undone once per output row (-2^31 * sum_k x), not once per MAC.
-# The kernel's own count is read from its SASS (``sass_census``).
-IMAD_PER_MAC = 3
+INT8_OPS_PER_S = 1979e12
+# ring_matmul's least work: 26 int8 digit-plane products, 2 operations per
+# multiply-add, on the int8 tensor cores.  x has 8 byte digits and w at
+# least 4 (bytes 0-2 u8, byte 3 s8), and only shifts i + j < 8 count:
+# 8 + 7 + 6 + 5.  The kernel issues 30 (w as 5 balanced s8 digits; design
+# note in csrc/ring_matmul.cu).
+PLANE_PRODUCTS = 26
+ISSUED_PLANE_PRODUCTS = 30
 
 STREAMS = 4
 # the kernels each main-path run must launch, and no others: pack_ring and
@@ -149,11 +155,35 @@ def max_abs_err(got, want) -> float:
     return err
 
 
+def timed_record(into, flush, name, source, replaces, fn, plain, bytes_moved,
+                 ops_s=0.0, shape="", path="exact"):
+    """Check a kernel equal to its plain version, time both, append the
+    record to ``into`` and return it."""
+    err = max_abs_err(fn(), plain())
+    ms, hot_ms = device_ms(fn, flush)
+    plain_ms, _ = device_ms(plain, flush)
+    call_ms = eager_ms(fn)
+    bytes_s = bytes_moved / HBM_BYTES_PER_S
+    bound_s = max(bytes_s, ops_s)
+    into.append({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": 0, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                 "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                 "library_ms": None, "shape": shape, "hot_ms": hot_ms,
+                 "eager_call_ms": call_ms, "path": path})
+    print(f"kernel {name} [{shape}]: {ms:.4f} ms on the device from DRAM "
+          f"({hot_ms:.4f} ms from L2, {call_ms:.4f} ms per eager call), "
+          f"plain {plain_ms:.4f} ms, "
+          f"bound {bound_s * 1e3:.4f} ms, max_abs_err {err}", flush=True)
+    return into[-1]
+
+
 def sass_census() -> dict:
-    """IMAD issue slots per multiply-add in the compiled ring_matmul kernel,
-    read from its SASS (``cuobjdump -sass``).  A static count over the whole
-    kernel (prologue, tile loads and epilogue included) divided by the 256
-    multiply-adds of one unrolled K-slice (BK=16 x a 4x4 register tile)."""
+    """Tensor-core and IMAD instructions in the compiled ring_matmul
+    kernel, read from its SASS (``cuobjdump -sass``; a static count,
+    prologue and epilogue included), and its registers and spills from
+    ptxas's ``-v`` report (its shared memory is dynamic: ``kSmem`` in the
+    source).  Fails if it has no IMMA or spills."""
     import re
     from repro_torch.kernels import build
 
@@ -161,21 +191,111 @@ def sass_census() -> dict:
     lib = build.build()["ring_matmul.cu"]
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
-    body = sass.split("Function :")
-    body = next(b for b in body[1:] if "ring_matmul_kernel" in b.splitlines()[0])
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
-                     body)
-    imads = {}
-    for op in ops:
-        if op.startswith("IMAD"):
-            imads[op] = imads.get(op, 0) + 1
-    slots = sum(n * (2 if ".WIDE" in op else 1) for op, n in imads.items())
-    macs = 16 * 4 * 4
-    out = {"instructions": len(ops), "imad": imads, "imad_slots": slots,
-           "imad_slots_per_mac": slots / macs}
-    print(f"ring_matmul SASS: {len(ops)} instructions, IMAD {imads}, "
-          f"{slots} IMAD slots = {slots / macs:.2f} per multiply-add "
-          f"(the bound counts {IMAD_PER_MAC})", flush=True)
+    out = {}
+    for body in sass.split("Function :")[1:]:
+        name = body.splitlines()[0].strip()
+        if "ring_matmul_kernel" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
+                         body)
+        count = {}
+        for op in ops:
+            if op.startswith(("IMMA", "IGMMA", "IMAD")):
+                count[op] = count.get(op, 0) + 1
+        imma = sum(n for op, n in count.items() if not op.startswith("IMAD"))
+        out[name] = {"instructions": len(ops), "tensor_core": imma,
+                     "imad": sum(n for op, n in count.items() if op.startswith("IMAD")),
+                     "by_op": count}
+        if imma == 0:
+            raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
+    if not out:
+        raise AssertionError("no ring_matmul kernel in the SASS")
+    ptxas = build.build_log("ring_matmul.cu")
+    for name, rec in out.items():
+        i = ptxas.find(f"Function properties for {name}")
+        report = ptxas[i:].splitlines()[1:3] if i >= 0 else []
+        rec["ptxas"] = " ".join(line.strip() for line in report)
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", rec["ptxas"])]
+        if not report or any(spills):
+            raise AssertionError(f"{name}: ptxas reports spills or nothing: "
+                                 f"{rec['ptxas']!r}")
+        print(f"ring_matmul SASS {name}: {rec['instructions']} instructions, "
+              f"tensor-core {rec['tensor_core']}, IMAD {rec['imad']} "
+              f"{rec['by_op']}; ptxas: {rec['ptxas']}", flush=True)
+    return out
+
+
+# ring_matmul's (M, K, N) on the main path and its launches per call: each
+# of the 4 requests' streams runs ResNet-18's 21 convs and fc on its own,
+# M = 2 parties x OH x OW, K = Cin x kh x kw, N = Cout
+RING_MATMUL_SHAPES = (
+    (2048, 27, 64, 4), (2048, 576, 64, 16), (512, 576, 128, 4),
+    (512, 1152, 128, 12), (512, 64, 128, 4), (128, 1152, 256, 4),
+    (128, 2304, 256, 12), (128, 128, 256, 4), (32, 2304, 512, 4),
+    (32, 4608, 512, 12), (32, 256, 512, 4), (2, 512, 10, 4))
+
+
+def ring_matmul_bound_s(m: int, k: int, n: int):
+    """(bytes s, operations s): each input read once and the output written
+    once over the memory rate; the 26 plane products over the int8 rate."""
+    return ((8 * m * k + 4 * k * n + 8 * m * n) / HBM_BYTES_PER_S,
+            PLANE_PRODUCTS * 2 * m * k * n / INT8_OPS_PER_S)
+
+
+def int_mm_ms(m: int, k: int, n: int, gen):
+    """Yardstick of the tensor-core part: one int8 (M, K) @ (K, N) product
+    through ``torch._int_mm`` (cuBLASLt), hot, times the 30 the kernel
+    issues, where it takes the shape; None where it does not.  The port
+    never calls it."""
+    if m <= 16 or k % 8 or n % 8:
+        return None
+    a = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    b = torch.randint(-128, 128, (n, k), generator=gen, dtype=torch.int8).cuda().t()
+    try:
+        return ISSUED_PLANE_PRODUCTS * _graph_ms(lambda: torch._int_mm(a, b), 10, 7) / 10
+    except RuntimeError as err:
+        print(f"torch._int_mm refuses M={m} K={k} N={n}: {err}", flush=True)
+        return None
+
+
+def ring_matmul_phase(record, gen) -> list:
+    """ring_matmul at the 12 main-path shapes and the 4 requests' stem convs
+    stacked (M x 4), full-range x and w (w's extremes -2^31 and 2^31 - 1,
+    x's bytes 0x00, 0x80 and 0xFF among them); returns the records."""
+    from repro_torch.kernels import ops, ref
+
+    out = []
+    for m, k, n, per_call in RING_MATMUL_SHAPES + ((STREAMS * 2048, 576, 64, 0),):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
+                          dtype=torch.int64)
+        x[0, :3] = torch.tensor([0, -1, -0x7F7F7F7F7F7F7F80])[:k]
+        wt = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
+                           dtype=torch.int64).to(torch.int32)
+        wt.view(-1)[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, 0, -1],
+                                       dtype=torch.int32)
+        x, wt = x.cuda(), wt.cuda()
+        bytes_s, ops_s = ring_matmul_bound_s(m, k, n)
+        row = record("ring_matmul", "src/repro_torch/csrc/ring_matmul.cu",
+                     "src/repro/kernels/ring_matmul.py:88",
+                     lambda: ops.ring_matmul(x, wt), lambda: ref.ring_matmul(x, wt),
+                     bytes_s * HBM_BYTES_PER_S, ops_s=ops_s,
+                     shape=f"M={m} K={k} N={n}")
+        row["per_call"] = per_call
+        row["int_mm_x30_ms"] = int_mm_ms(m, k, n, gen)
+        if row["int_mm_x30_ms"] is not None:
+            print(f"  yardstick: 30 x torch._int_mm at M={m} K={k} N={n}: "
+                  f"{row['int_mm_x30_ms']:.4f} ms hot", flush=True)
+        out.append(row)
+    main = [r for r in out if r["per_call"]]
+    sums = {key: sum(r["per_call"] * r[key] for r in main)
+            for key in ("ms", "hot_ms", "eager_call_ms", "bound_ms")}
+    print(f"ring_matmul per main-path call ({sum(r['per_call'] for r in main)} "
+          f"launches): {sums['ms']:.4f} ms from DRAM, {sums['hot_ms']:.4f} ms "
+          f"from L2, {sums['eager_call_ms']:.4f} ms eager; card bound "
+          f"{sums['bound_ms']:.4f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}%)",
+          flush=True)
+    for r in out:
+        r["per_call_sums"] = sums
     return out
 
 
@@ -190,24 +310,8 @@ def kernel_phase():
     rows, extra = [], []
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MB
 
-    def record(name, source, replaces, fn, plain, bytes_moved, ops_s=0.0,
-               shape="", into=rows, path="exact"):
-        err = max_abs_err(fn(), plain())
-        ms, hot_ms = device_ms(fn, scratch.zero_)
-        plain_ms, _ = device_ms(plain, scratch.zero_)
-        call_ms = eager_ms(fn)
-        bytes_s = bytes_moved / HBM_BYTES_PER_S
-        bound_s = max(bytes_s, ops_s)
-        into.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-                     "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-                     "library_ms": None, "shape": shape, "hot_ms": hot_ms,
-                     "eager_call_ms": call_ms, "path": path})
-        print(f"kernel {name} [{shape}]: {ms:.4f} ms on the device from DRAM "
-              f"({hot_ms:.4f} ms from L2, {call_ms:.4f} ms per eager call), "
-              f"plain {plain_ms:.4f} ms, "
-              f"bound {bound_s * 1e3:.4f} ms, max_abs_err {err}", flush=True)
+    def record(*args, into=rows, **kwargs):
+        return timed_record(into, scratch.zero_, *args, **kwargs)
 
     for w, into in ((64, rows), (8, extra)):
         sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
@@ -280,20 +384,13 @@ def kernel_phase():
                lambda: ops.pack(bits, 1), lambda: ref.pack(bits, 1),
                4 * rows_ * n_el + 4 * rows_ * n_words,
                shape=f"R={rows_} E={n_el} w=1", into=into)
-    # stage-1 conv: each request's stream runs its own convs, so the main
-    # path's M is parties x 32 x 32; the 4 requests stacked (M x 4) ride along
-    for m, into in ((P * 1024, rows), (P * STREAMS * 1024, extra)):
-        k, n = 64 * 9, 64
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
-                          dtype=torch.int64).cuda()
-        wt = torch.randint(-2 ** 20, 2 ** 20, (k, n), generator=gen,
-                           dtype=torch.int32).cuda()
-        record("ring_matmul", "src/repro_torch/csrc/ring_matmul.cu",
-               "src/repro/kernels/ring_matmul.py:88",
-               lambda: ops.ring_matmul(x, wt), lambda: ref.ring_matmul(x, wt),
-               m * k * 8 + k * n * 4 + m * n * 8,
-               ops_s=m * n * k * IMAD_PER_MAC / IMAD_PER_S,
-               shape=f"M={m} K={k} N={n}", into=into)
+    # every conv and fc: the stage-1 conv (16 launches per call) is the
+    # row of the kernels line, the other shapes go with the extra records
+    for row in ring_matmul_phase(lambda *a, **kw: record(*a, into=extra, **kw),
+                                 gen):
+        if row["shape"] == "M=2048 K=576 N=64":
+            extra.remove(row)
+            rows.append(row)
     return rows, extra
 
 
@@ -485,6 +582,10 @@ def main() -> None:
     rows, extra = kernel_phase()
     sass = sass_census()
     runs, launches = main_path_phase()
+    per_call = sum(c for *_, c in RING_MATMUL_SHAPES)
+    if set(launches["ring_matmul"].values()) != {per_call}:
+        raise AssertionError(f"ring_matmul launched {launches['ring_matmul']} "
+                             f"times, its shape table counts {per_call}")
     breakdown = stem_breakdown_phase()
     for row in rows + extra:     # launches: the row's path; all four beside
         row["launches"] = launches[row["name"]][row.pop("path")]

@@ -4,9 +4,10 @@ The reference contracts balanced 8-bit digit planes in a jnp einsum
 because a TPU has no 64-bit integer matmul.  PyTorch has none on CUDA
 either (cuBLAS has no int64 GEMM), so every conv and fc here goes through
 the port's ``ring_matmul`` CUDA kernel (``kernels/ops.py``), which
-multiplies in uint64 arithmetic directly; on CPU tensors the kernel's plain
-version runs.  Results are bit-identical to the reference's
-``ring_linalg.matmul_pub``.
+contracts int8 digit planes on the tensor cores: x's 8 raw bytes against
+w's 5 balanced digits, one int32 sum per shift, folded into 64 bits at
+most every 16384 of K.  On CPU tensors the kernel's plain version runs.
+Results are bit-identical to the reference's ``ring_linalg.matmul_pub``.
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 
 Each source in ``src/repro_torch/csrc/`` compiles to its own shared library
 with a plain C interface (one ``nvcc`` process per source, all started
-together).  Libraries go to ``build/repro_torch_kernels/<hash>/`` at the
+together).  The compiler's output, with ptxas's register, shared-memory
+and spill report for every kernel, is kept beside each library
+(``build_log``).  Libraries go to ``build/repro_torch_kernels/<hash>/`` at the
 repository root, keyed by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads at once.  Nothing is built
 when this module is imported.
@@ -23,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("gmw_round.cu", "ring_matmul.cu", "bitpack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -67,10 +69,16 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, pathlib.Path]:
         if proc.returncode != 0:
             failures.append(f"{name}:\n{output}")
         else:
+            libs[name].with_suffix(".log").write_text(output)
             os.replace(tmp, libs[name])
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     return libs
+
+
+def build_log(source: str) -> str:
+    """The compiler's output for one source (ptxas's ``-v`` report)."""
+    return build()[source].with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,6 +9,10 @@ from __future__ import annotations
 
 import torch
 
+# The most K one int32 shift accumulator of the ring_matmul kernel takes:
+# one k adds at most 4 * 255 * 128 + 255 to a shift's sum, so K <= 16416.
+FOLD_K = 16384
+
 
 def _per_party(sel: torch.Tensor, ndim: int) -> torch.Tensor:
     return sel.reshape((-1,) + (1,) * (ndim - 1))
@@ -101,4 +105,30 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for k0 in range(0, k, chunk):
         part = x[:, k0:k0 + chunk, None] * w64[None, k0:k0 + chunk, :]
         out += part.sum(dim=1)
+    return out
+
+
+def ring_matmul_digits(x: torch.Tensor, w: torch.Tensor,
+                       fold: int = FOLD_K) -> torch.Tensor:
+    """The ring_matmul kernel's own arithmetic (``csrc/ring_matmul.cu``):
+    x's 8 raw bytes u_i as unsigned digits, w's 5 balanced digits e_j
+    (e_0..e_3 the bytes of w + 0x80808080 minus 128, e_4 its carry into bit
+    32), one int32 sum per shift s = i + j < 8 over at most ``fold`` of K,
+    recombined as sum_s acc_s << 8s mod 2^64.  Raises ``OverflowError``
+    where a shift's sum leaves the int32 range, as the kernel's
+    accumulators would."""
+    m, k = x.shape
+    n = w.shape[1]
+    u = [(x >> (8 * i)) & 0xFF for i in range(8)]
+    v = w.to(torch.int64) + 0x80808080
+    e = [((v >> (8 * j)) & 0xFF) - 128 for j in range(4)] + [v >> 32]
+    out = torch.zeros((m, n), dtype=torch.int64, device=x.device)
+    for k0 in range(0, k, fold):
+        ks = slice(k0, k0 + fold)
+        for s in range(8):
+            acc = sum(u[i][:, ks] @ e[s - i][ks] for i in range(max(0, s - 4), s + 1))
+            if acc.numel() and (int(acc.min()) < -2 ** 31 or int(acc.max()) >= 2 ** 31):
+                raise OverflowError(f"ring_matmul_digits: shift {s}'s sum over "
+                                    f"{min(fold, k - k0)} of K leaves int32")
+            out += acc << (8 * s)
     return out

@@ -4,6 +4,9 @@ Imports no jax, so it runs on the GPU machine:
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py`` (the suite's conftest imports jax).  Without a card
 it skips."""
+import pathlib
+import sys
+
 import pytest
 import torch
 
@@ -85,3 +88,46 @@ def test_cuda_ks_level_and_bitpack_equal_plain_versions():
     assert {k: counts[k] for k in ("ks_level", "pack", "pack_ring", "unpack")} \
         == {"ks_level": 3, "pack": 12, "pack_ring": 20, "unpack": 12}
 
+
+def _main_path_matmuls():
+    """(M, K, N) of every conv and fc of full-width ResNet-18 on one
+    request's stream, from ``chip_smoke.py``'s table."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return tuple((m, k, n) for m, k, n, _ in chip_smoke.RING_MATMUL_SHAPES)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_matmul_main_path_shapes_and_fold():
+    """The tensor-core ring_matmul at every shape the main path gives it,
+    at ragged shapes, and at K past the int32 accumulators' 16384 (random
+    and worst-case digits), against its plain version with full-range
+    weights; one launch per call.  At 768 x 768 the output tiles outnumber
+    what the card holds at once, so K is not split to fill it, and only
+    the fold at 16384 keeps the worst case's int32 sums from wrapping."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(2)
+    fold_k = tref.FOLD_K + 128
+    cases = []
+    for m, k, n in _main_path_matmuls() + ((33, 70, 17), (1, 1, 1), (17, 33, 2),
+                                           (2, fold_k, 3), (768, fold_k, 768)):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
+                          dtype=torch.int64)
+        x[0, :3] = torch.tensor([0, -1, -0x7f7f7f7f7f7f7f80])[:k]   # 0x00/0xFF/0x80 bytes
+        wt = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
+                           dtype=torch.int64).to(torch.int32)
+        wt.view(-1)[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, 0, -1],
+                                       dtype=torch.int32)[:k * n]
+        cases.append((x, wt))
+    # every shift's sum at its int32 extreme: all bytes 0xFF, all w digits -128
+    for m, n in ((2, 3), (768, 768)):
+        cases.append((torch.full((m, fold_k), -1, dtype=torch.int64),
+                      torch.full((fold_k, n), 0x7F7F7F80, dtype=torch.int32)))
+    ops.reset_launches()
+    for x, wt in cases:
+        x, wt = x.cuda(), wt.cuda()
+        assert torch.equal(ops.ring_matmul(x, wt), tref.ring_matmul(x, wt)), \
+            (tuple(x.shape), tuple(wt.shape))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ring_matmul"] == len(cases)

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from repro.core import ring as jring, ring_linalg as jlinalg, shares as jshares
-from repro.kernels import bitpack, gmw_round, ref as jref
+from repro.kernels import bitpack, gmw_round, ref as jref, ring_matmul as jring_matmul
 from repro_torch.core import ring as tring, shares as tshares
 from repro_torch.kernels import ops, ref as tref
 
@@ -134,14 +134,42 @@ def test_shares_packing_routes_through_the_wrappers():
                                   np.asarray(jshares.unpack_bits(want, 77)))
 
 
-@pytest.mark.parametrize("m,k,n", [(8, 128, 128), (5, 40, 12), (33, 300, 7)])
+def _ring_matmul_pallas(x: jring.Ring64, w_np: np.ndarray) -> np.ndarray:
+    """The Pallas kernel in interpret mode on zero-padded digit planes
+    (its blocks: 8 rows, 128 of K, 128 columns)."""
+    m, k = x.shape
+    n = w_np.shape[1]
+    mp, kp, np_ = -(-m // 8) * 8, max(128, -(-k // 128) * 128), -(-n // 128) * 128
+    dx = jnp.pad(jring.balanced_digits(x), ((0, 0), (0, mp - m), (0, kp - k)))
+    dw = jnp.pad(jring.balanced_digits_i32(jnp.asarray(w_np)),
+                 ((0, 0), (0, kp - k), (0, np_ - n)))
+    lo, hi = jring_matmul.ring_matmul_pallas(dx, dw, block=(8, 128, 128),
+                                            interpret=True)
+    return jring.to_uint64_np(jring.Ring64(lo[:m, :n], hi[:m, :n]))
+
+
+FOLD_PAST = tref.FOLD_K + 128        # past the kernel's int32 fold
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 128, 128), (5, 40, 12), (33, 300, 7),
+                                   (1, 1, 1), (2, 33, 2), (17, 64, 33),
+                                   (33, 70, 17), (3, 0, 5), (2, FOLD_PAST, 3)])
 def test_ring_matmul_plain_vs_ref_jnp_and_oracle(m, k, n):
+    """The plain version and the kernel's own digit arithmetic
+    (``ring_matmul_digits``) against the reference's digit oracle, its jnp
+    path, its Pallas kernel in interpret mode and Python ints: full-range
+    w (-2^31, 2^31 - 1, 0, -1 among it), x with all-0x00, 0x80 and 0xFF
+    bytes, ragged M and N, K = 0 and K past the 16384 fold."""
     rng = np.random.default_rng(4)
     x_np = rng.integers(0, 2 ** 64, (m, k), dtype=np.uint64)
-    x_np[0, :4] = [0, 2 ** 63, 2 ** 64 - 1, 1]
+    x_np[0, :4] = [0, 2 ** 63, 2 ** 64 - 1, 1][:k]
+    x_np[-1, :3] = [0x8080808080808080, 2 ** 64 - 1, 0][:k]
     w_np = rng.integers(-2 ** 31, 2 ** 31, (k, n)).astype(np.int32)
-    got = tring.to_uint64_np(tref.ring_matmul(tring.from_uint64_np(x_np, "cpu"),
-                                              torch.from_numpy(w_np)))
+    w_np.flat[:4] = [-2 ** 31, 2 ** 31 - 1, 0, -1][:k * n]
+    x_t = tring.from_uint64_np(x_np, "cpu")
+    got = tring.to_uint64_np(tref.ring_matmul(x_t, torch.from_numpy(w_np)))
+    digits = tring.to_uint64_np(tref.ring_matmul_digits(x_t, torch.from_numpy(w_np)))
+    np.testing.assert_array_equal(digits, got)
     jx = jring.from_uint64_np(x_np)
     lo, hi = jref.ring_matmul(jring.balanced_digits(jx),
                               jring.balanced_digits_i32(jnp.asarray(w_np)))
@@ -149,7 +177,27 @@ def test_ring_matmul_plain_vs_ref_jnp_and_oracle(m, k, n):
     jnp_path = jlinalg._matmul_chunk(jx, jnp.asarray(w_np))
     np.testing.assert_array_equal(got, jring.to_uint64_np(jnp_path))
     oracle = (x_np.astype(object) @ w_np.astype(object)) % (1 << 64)
-    np.testing.assert_array_equal(got, oracle.astype(np.uint64))
+    np.testing.assert_array_equal(got, np.asarray(oracle, dtype=np.uint64).reshape(m, n))
+    if k <= 512:
+        np.testing.assert_array_equal(got, _ring_matmul_pallas(jx, w_np))
+    else:
+        np.testing.assert_array_equal(got, jring.to_uint64_np(
+            jlinalg.matmul_pub(jx, jnp.asarray(w_np))))
+
+
+def test_ring_matmul_digits_folds_before_int32_overflows():
+    """Every x byte 0xFF and every w digit -128 (w = 0x7F7F7F80): one
+    shift's sum over more than 16 448 of K leaves int32.  The fold at 16384
+    keeps the result exact; without it the plain arithmetic raises, as the
+    kernel's accumulators would wrap."""
+    x_np = np.full((2, FOLD_PAST), 2 ** 64 - 1, np.uint64)
+    w_np = np.full((FOLD_PAST, 3), 0x7F7F7F80, np.int32)
+    x_t, w_t = tring.from_uint64_np(x_np, "cpu"), torch.from_numpy(w_np)
+    oracle = (x_np.astype(object) @ w_np.astype(object)) % (1 << 64)
+    np.testing.assert_array_equal(tring.to_uint64_np(tref.ring_matmul_digits(x_t, w_t)),
+                                  oracle.astype(np.uint64))
+    with pytest.raises(OverflowError):
+        tref.ring_matmul_digits(x_t, w_t, fold=FOLD_PAST)
 
 
 def test_wrappers_take_the_plain_version_on_cpu():

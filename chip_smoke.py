@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 (``tools/ring_matmul_bench.py`` times ring_matmul alone, with this
-script's shapes and timing, for another checkout's kernel or a variant.)
+script's shapes and timing, for another checkout's kernel or a variant;
+``tools/bitpack_bench.py`` times unpack and pack at every main-path shape
+of the word-route and the bit-route triple merge.)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -20,7 +22,9 @@ Phases (any failure raises, and the script exits non-zero):
    path gives it, with full-range int32 weights, and its sum per main-path
    call (launches x ms) beside the card's bound; read the ring_matmul
    kernel's tensor-core (IMMA) and IMAD counts from its SASS and its
-   registers and spills from ptxas;
+   registers and spills from ptxas; unpack at the four sign-plane shapes
+   (``SIGN_PLANES``) with its sum per main-path call beside the bound,
+   at the ragged merge's shape and at w = 8 and 32;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
@@ -28,11 +32,19 @@ Phases (any failure raises, and the script exits non-zero):
    (21, 13) on every ReLU group but the last, which is culled), and the
    same two with the MSB-cone-pruned adder (``cone=True``).  Launch
    counters are zeroed just before each run and read just after; each run
-   must launch exactly the kernels of its path (``PATH_KERNELS``).
-   Measured fused rounds and bytes must equal ``plan.schedule(streams=4)``;
-   the exact plans' revealed logits must match the plaintext forward
-   within the stated tolerance;
-5. stem breakdown: the exact plan's stem layer for 4 requests timed by
+   must launch exactly the kernels of its path (``PATH_KERNELS``), and
+   unpack once per ReLU (the sign plane).  Measured fused rounds and bytes
+   must equal ``plan.schedule(streams=4)``; the exact plans' revealed
+   logits must match the plaintext forward within the stated tolerance;
+5. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
+   (not a multiple of 32, so their triples merge at the bit level, through
+   unpack and pack), dense at (64, 0) and with the cone at (21, 13), each
+   launching exactly its ``PATH_KERNELS`` and equal bit for bit to the
+   same call on the CPU with the plain versions;
+6. merge: ``beaver.concat_relu_triples`` on the stem's 4 streams (exact,
+   dense and cone) by the word route and by the bit route (the ragged
+   case's), timed both ways and required ``torch.equal``;
+7. stem breakdown: the exact plan's stem layer for 4 requests timed by
    part (conv, triples, protocol; the adder dense and cone-pruned), and
    the device's busy share of one traced run of it.
 
@@ -66,16 +78,29 @@ PLANE_PRODUCTS = 26
 ISSUED_PLANE_PRODUCTS = 30
 
 STREAMS = 4
-# the kernels each main-path run must launch, and no others: pack_ring and
-# unpack on every ReLU, pack (and unpack) on every merge of the 4 streams'
-# triples, ring_matmul on every conv and fc; the dense adder runs on
-# beaver_and, ks_mask and ks_combine, the cone adder on beaver_and and
-# ks_level
-_COMMON = {"beaver_and", "ring_matmul", "pack", "pack_ring", "unpack"}
-PATH_KERNELS = {"exact": _COMMON | {"ks_mask", "ks_combine"},
-                "reduced": _COMMON | {"ks_mask", "ks_combine"},
-                "exact-cone": _COMMON | {"ks_level"},
-                "reduced-cone": _COMMON | {"ks_level"}}
+# ResNet-18's ReLUs by group: elements per request and ReLUs per call (the
+# stem, then 4 in each stage), and each plan's width per group (0: culled)
+RELU_GROUPS = ((65536, 1), (65536, 4), (32768, 4), (16384, 4), (8192, 4))
+PLAN_WIDTHS = {"exact": (64,) * 5, "reduced": (8,) * 4 + (0,)}
+PLAN_WIDTHS.update({f"{p}-cone": ws for p, ws in PLAN_WIDTHS.items()})
+# the sign plane's unpack: (2 parties, w = 1, n = 4 requests' elements)
+SIGN_PLANES = tuple(sorted({STREAMS * n for n, _ in RELU_GROUPS}, reverse=True))
+# the ragged-merge path's elements per stream: not a multiple of 32
+RAGGED_N = 8209
+# the kernels each run must launch, and no others: pack_ring and unpack
+# (the sign plane) on every ReLU, ring_matmul on every conv and fc; the
+# dense adder runs on beaver_and, ks_mask and ks_combine, the cone adder on
+# beaver_and and ks_level.  Every ResNet-18 group's element count is a
+# multiple of 32, so the 4 streams' triples merge by word concatenation;
+# the ragged-merge path's are not, and its merges unpack and pack.
+_RELU = {"beaver_and", "pack_ring", "unpack"}
+_DENSE, _CONE = {"ks_mask", "ks_combine"}, {"ks_level"}
+PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
+                "reduced": _RELU | {"ring_matmul"} | _DENSE,
+                "exact-cone": _RELU | {"ring_matmul"} | _CONE,
+                "reduced-cone": _RELU | {"ring_matmul"} | _CONE,
+                "ragged-merge": _RELU | {"pack"} | _DENSE,
+                "ragged-merge-cone": _RELU | {"pack"} | _CONE}
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -299,6 +324,34 @@ def ring_matmul_phase(record, gen) -> list:
     return out
 
 
+def sign_plane_launches(plan: str) -> dict:
+    """unpack's launches per main-path call at each sign plane's n."""
+    out = {}
+    for (n, relus), w in zip(RELU_GROUPS, PLAN_WIDTHS[plan]):
+        if w:
+            out[STREAMS * n] = out.get(STREAMS * n, 0) + relus
+    return out
+
+
+def sign_plane_sums(sign_rows) -> dict:
+    """Per plan, unpack's launches x ms per main-path call over the sign
+    planes, from their rows (shape ``R=2 w=1 W=.. n=..``)."""
+    by_n = {int(r["shape"].rsplit("n=", 1)[1]): r for r in sign_rows}
+    out = {}
+    for plan in PLAN_WIDTHS:
+        launches = sign_plane_launches(plan)
+        out[plan] = {key: sum(c * by_n[n][key] for n, c in launches.items())
+                     for key in ("ms", "hot_ms", "eager_call_ms", "bound_ms")}
+        out[plan]["launches"] = sum(launches.values())
+        if plan.endswith("cone"):
+            continue
+        print(f"unpack per {plan} call ({out[plan]['launches']} sign planes): "
+              f"{out[plan]['ms']:.4f} ms from DRAM, {out[plan]['hot_ms']:.4f} "
+              f"ms from L2, {out[plan]['eager_call_ms']:.4f} ms eager; card "
+              f"bound {out[plan]['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
 def kernel_phase():
     """Each kernel against its plain version at main-path shapes."""
     from repro_torch.kernels import ops, ref
@@ -365,25 +418,39 @@ def kernel_phase():
                lambda: ops.pack_ring(x, k, m), lambda: ref.pack_ring(x, k, m),
                8 * P * n_el + 4 * P * (k - m) * n_words,
                shape=f"P={P} E={n_el} k={k} m={m}", into=into)
-    # the sign plane (w = 1 over the parties' rows), then the triple merge's
-    # unpack of one stream's bin_init (P x w planes of n_el / 4 bits)
-    for rows_, n, into in ((P, n_el, rows), (P * 64, n_el // STREAMS, extra)):
-        packed = words(gen, rows_, 1, (n + 31) // 32)
-        record("unpack", "src/repro_torch/csrc/bitpack.cu",
-               "src/repro/kernels/bitpack.py:60",
-               lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
-               4 * packed.numel() + 4 * rows_ * n,
-               shape=f"R={rows_} w=1 W={packed.shape[-1]} n={n}", into=into)
-    # the triple merge's repack: the 4 streams' bin_init bits, one plane per
-    # row (P x w rows, w = 64 exact and w = 8 reduced)
-    for rows_, into in ((P * 64, rows), (P * 8, extra)):
-        bits = torch.randint(0, 2, (rows_, n_el), generator=gen,
+    # unpack: the four sign planes (w = 1 over the parties' rows; the
+    # stem's is the row of the kernels line); the bit-route merge's unpack of one
+    # stream's bin_init (P x 64 planes) at the ragged path's n and at the
+    # stem's; w = 8 and 32 at the stem's n
+    sign = []
+    for rows_, w, n, path in ([(P, 1, n, "exact") for n in SIGN_PLANES]
+                              + [(P * 64, 1, RAGGED_N, "ragged-merge"),
+                                 (P * 64, 1, n_el // STREAMS, "ragged-merge"),
+                                 (P, 8, n_el, "exact"), (P, 32, n_el, "exact")]):
+        packed = words(gen, rows_, w, (n + 31) // 32)
+        row = record("unpack", "src/repro_torch/csrc/bitpack.cu",
+                     "src/repro/kernels/bitpack.py:60",
+                     lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
+                     4 * packed.numel() + 4 * rows_ * n,
+                     shape=f"R={rows_} w={w} W={packed.shape[-1]} n={n}",
+                     into=rows if n == n_el and w == 1 else extra, path=path)
+        if rows_ == P and w == 1:
+            sign.append(row)
+    sums = sign_plane_sums(sign)
+    for row in sign:
+        row["per_call_sums"] = sums
+    # pack: the ragged-merge path's repack of the 4 streams' bin_init bits,
+    # one plane per row (P x 64 rows, the row of the kernels line), and the
+    # parent's main-path shapes at the stem (w = 64 exact, w = 8 reduced)
+    for rows_, e, into in ((P * 64, STREAMS * RAGGED_N, rows), (P * 64, n_el, extra),
+                           (P * 8, n_el, extra)):
+        bits = torch.randint(0, 2, (rows_, e), generator=gen,
                              dtype=torch.int32).cuda()
         record("pack", "src/repro_torch/csrc/bitpack.cu",
                "src/repro/kernels/bitpack.py:44",
                lambda: ops.pack(bits, 1), lambda: ref.pack(bits, 1),
-               4 * rows_ * n_el + 4 * rows_ * n_words,
-               shape=f"R={rows_} E={n_el} w=1", into=into)
+               4 * rows_ * e + 4 * rows_ * ((e + 31) // 32),
+               shape=f"R={rows_} E={e} w=1", into=into, path="ragged-merge")
     # every conv and fc: the stage-1 conv (16 launches per call) is the
     # row of the kernels line, the other shapes go with the extra records
     for row in ring_matmul_phase(lambda *a, **kw: record(*a, into=extra, **kw),
@@ -466,6 +533,100 @@ def main_path_phase():
               f"max |reveal - plaintext| {err:.3g} "
               f"(max |logit| {float(want.abs().max()):.3g})", flush=True)
     return runs, launches
+
+
+def ragged_merge_phase():
+    """``gmw.relu_many`` on 4 sibling streams of ``RAGGED_N`` elements, dense
+    at (64, 0) and with the cone at (21, 13): not a multiple of 32, so the
+    streams' triples merge at the bit level (unpack, cat, pack).  Launch
+    counters are zeroed just before each run on the card and read just
+    after; the output shares must equal the same call on the CPU (the
+    plain versions) bit for bit."""
+    from repro_torch.core import beaver, comm as comm_lib, gmw, prng
+    from repro_torch.kernels import ops
+
+    runs, launches = {}, {}
+    for name, (k, m), cone in (("ragged-merge", (64, 0), False),
+                               ("ragged-merge-cone", (21, 13), True)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(3)
+            xs = [torch.randint(-2 ** 63, 2 ** 63 - 1, (2, RAGGED_N), generator=gen,
+                                dtype=torch.int64).to(dev) for _ in range(STREAMS)]
+            keys = [prng.PRNGKey(400 + i, dev) for i in range(STREAMS)]
+            tris = [beaver.gen_relu_triples(prng.PRNGKey(500 + i, dev), RAGGED_N,
+                                            k - m, cone=cone) for i in range(STREAMS)]
+            cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ops.reset_launches()
+            outs[dev] = gmw.relu_many(keys, xs, tris, cc, [(k, m)] * STREAMS,
+                                      cone=cone)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+        launched = {kn for kn, v in counts.items() if v}
+        if launched != PATH_KERNELS[name]:
+            raise AssertionError(f"{name}: launched {sorted(launched)}, its path "
+                                 f"runs {sorted(PATH_KERNELS[name])}")
+        for got, want in zip(outs["cuda"], outs["cpu"]):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{name}: shares differ from the CPU run")
+        for kn, v in counts.items():
+            launches.setdefault(kn, {})[name] = v
+        runs[name] = {"n_per_stream": RAGGED_N, "k": k, "m": m,
+                      "rounds": cc.n_rounds, "bytes": cc.bytes_tx,
+                      "launches": counts}
+        print(f"{name}: {STREAMS} streams x {RAGGED_N} elements at ({k}, {m}), "
+              f"launches {counts}, shares equal the CPU run's", flush=True)
+    return runs, launches
+
+
+def relu_tensors(t) -> list:
+    """Every tensor of a ReluTriples bundle: the packed binary members'
+    (int32) first, then the arithmetic ones (int64)."""
+    levels = t.bin_levels if isinstance(t.bin_levels, tuple) else (t.bin_levels,)
+    return [getattr(m, f) for m in (t.bin_init, *levels, t.b2a, t.mult)
+            for f in ("a", "b", "c")]
+
+
+def merge_phase(flush):
+    """The stem's 4 streams' triples merged by ``concat_relu_triples`` (the
+    word route) and by the bit route of the ragged case
+    (``beaver._cat_bin_bits``: unpack, cat, pack), exact dense (w = 64) and
+    exact-cone.  Bytes: the word route reads and writes every member once,
+    which is also the bound; the bit route adds 4 bytes per bit written by
+    unpack, read and written by the cat and read by pack."""
+    from repro_torch.core import beaver, prng
+
+    n, w = RELU_GROUPS[0][0], 64
+    out = {}
+    for plan, cone in (("exact", False), ("exact-cone", True)):
+        bundles = [beaver.gen_relu_triples(prng.PRNGKey(600 + i, "cuda"), n, w,
+                                           cone=cone) for i in range(STREAMS)]
+        routes = {
+            "word": lambda: beaver.concat_relu_triples(bundles, [n] * STREAMS, w,
+                                                       cone=cone),
+            "bit": lambda: beaver._concat(bundles, [n] * STREAMS, w, cone,
+                                          beaver._cat_bin_bits)}
+        merged = {r: relu_tensors(fn()) for r, fn in routes.items()}
+        if not all(torch.equal(a, b) for a, b in zip(merged["word"], merged["bit"])):
+            raise AssertionError(f"merge {plan}: the word and bit routes differ")
+        members = [t for b in bundles for t in relu_tensors(b)]
+        word_bytes = sum(2 * t.numel() * t.element_size() for t in members)
+        bits = sum(32 * t.numel() for t in members if t.dtype == torch.int32)
+        traffic = {"word": word_bytes, "bit": word_bytes + 16 * bits}
+        out[plan] = {"bound_ms": word_bytes / HBM_BYTES_PER_S * 1e3}
+        for route, fn in routes.items():
+            ms, hot_ms = device_ms(fn, flush, trials=5, reps=1)
+            call_ms = eager_ms(fn, trials=3, reps=2)
+            out[plan][route] = {"ms": ms, "hot_ms": hot_ms, "eager_call_ms": call_ms,
+                                "bytes": traffic[route]}
+            print(f"merge {plan} ({STREAMS} x {n} elements, w = {w}) by {route}s: "
+                  f"{ms:.4f} ms on the device from DRAM ({hot_ms:.4f} ms from L2, "
+                  f"{call_ms:.4f} ms per eager call), {traffic[route]} B moved; "
+                  f"bound {out[plan]['bound_ms']:.4f} ms", flush=True)
+    return out
 
 
 def trace_busy(prof):
@@ -586,8 +747,18 @@ def main() -> None:
     if set(launches["ring_matmul"].values()) != {per_call}:
         raise AssertionError(f"ring_matmul launched {launches['ring_matmul']} "
                              f"times, its shape table counts {per_call}")
+    for plan, n in launches["unpack"].items():
+        if n != sum(sign_plane_launches(plan).values()):
+            raise AssertionError(f"{plan}: unpack launched {n} times, once per "
+                                 f"ReLU's sign plane is "
+                                 f"{sum(sign_plane_launches(plan).values())}")
+    ragged, ragged_launches = ragged_merge_phase()
+    for k, by_path in ragged_launches.items():
+        launches.setdefault(k, {}).update(by_path)
+    merge = merge_phase(torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                    device="cuda").zero_)
     breakdown = stem_breakdown_phase()
-    for row in rows + extra:     # launches: the row's path; all four beside
+    for row in rows + extra:     # launches: the row's path; all paths beside
         row["launches"] = launches[row["name"]][row.pop("path")]
         row["launches_by_path"] = launches[row["name"]]
 
@@ -598,7 +769,7 @@ def main() -> None:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "device": device, "kernels": rows,
                    "kernels_other_shapes": extra, "ring_matmul_sass": sass,
-                   "main_path": runs,
+                   "main_path": runs, "ragged_merge": ragged, "merge": merge,
                    "stem_breakdown": breakdown}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

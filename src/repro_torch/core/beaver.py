@@ -102,37 +102,61 @@ def gen_relu_triples(key: torch.Tensor, n_elements: int, w: int,
                        gen_arith(k4, (n_elements,), n_parties))
 
 
-def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
-                        w: int, cone: bool = False) -> ReluTriples:
-    """Merge per-stream ReluTriples (same ring width w) into one bundle for
-    the element-wise concatenation of the streams: arithmetic members
-    concatenate on the element axis; packed binary members are repacked at
-    the bit level, because word boundaries shift when n_i is not a
-    multiple of 32 (tail padding bits pack to the all-zero triple).  The
+def _cat_bin_words(members: Sequence[BinTriple],
+                   n_list: Sequence[int]) -> BinTriple:
+    """Merge packed triples by concatenating their words on the last axis:
+    bit-identical to ``_cat_bin_bits`` when every n_i is a multiple of 32
+    (no tail bits, word boundaries do not shift)."""
+    return BinTriple(*(torch.cat([getattr(t, f) for t in members], dim=-1)
+                       for f in ("a", "b", "c")))
+
+
+def _cat_bin_bits(members: Sequence[BinTriple],
+                  n_list: Sequence[int]) -> BinTriple:
+    """Merge packed triples at the bit level, as the reference: unpack each
+    stream's words to its n_i bits, concatenate, pack (tail bits zero)."""
+    def cat(field: str) -> torch.Tensor:
+        bits = [shares.unpack_bits(getattr(t, field), n)
+                for t, n in zip(members, n_list)]
+        return shares.pack_bits(torch.cat(bits, dim=-1))
+    return BinTriple(cat("a"), cat("b"), cat("c"))
+
+
+def _concat(bundles: Sequence[ReluTriples], n_list: Sequence[int], w: int,
+            cone: bool, cat_bin) -> ReluTriples:
+    """Merge bundles with ``cat_bin`` for every packed binary member; the
     cone's ragged per-level tuples merge level by level."""
-    if len(bundles) != len(n_list):
-        raise ValueError(f"concat_relu_triples: {len(bundles)} bundles vs "
-                         f"{len(n_list)} element counts")
-
-    def cat_bin(members: Sequence[BinTriple]) -> BinTriple:
-        def cat(field: str) -> torch.Tensor:
-            bits = [shares.unpack_bits(getattr(t, field), n)
-                    for t, n in zip(members, n_list)]
-            return shares.pack_bits(torch.cat(bits, dim=-1))
-        return BinTriple(cat("a"), cat("b"), cat("c"))
-
     def cat_arith(members: Sequence[ArithTriple]) -> ArithTriple:
         return ArithTriple(*(torch.cat([getattr(t, f) for t in members], dim=-1)
                              for f in ("a", "b", "c")))
 
     if cone and w > 1:
-        bin_levels = tuple(cat_bin([b.bin_levels[lvl] for b in bundles])
+        bin_levels = tuple(cat_bin([b.bin_levels[lvl] for b in bundles], n_list)
                            for lvl in range(len(bundles[0].bin_levels)))
     else:
-        bin_levels = cat_bin([b.bin_levels for b in bundles])
-    return ReluTriples(cat_bin([b.bin_init for b in bundles]), bin_levels,
+        bin_levels = cat_bin([b.bin_levels for b in bundles], n_list)
+    return ReluTriples(cat_bin([b.bin_init for b in bundles], n_list), bin_levels,
                        cat_arith([b.b2a for b in bundles]),
                        cat_arith([b.mult for b in bundles]))
+
+
+def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
+                        w: int, cone: bool = False) -> ReluTriples:
+    """Merge per-stream ReluTriples (same ring width w) into one bundle for
+    the element-wise concatenation of the streams, bit-identical to the
+    reference's ``concat_relu_triples``.  Arithmetic members concatenate on
+    the element axis.  Packed binary members (``bin_init``, the dense
+    ``bin_levels`` stack, each of the cone's per-level triples) concatenate
+    their words when every n_i is a multiple of 32; otherwise word
+    boundaries shift, and the last stream's tail holds random bits that the
+    reference's repack zeroes, so they are repacked at the bit level
+    (``_cat_bin_bits``: unpack, concatenate, pack)."""
+    if len(bundles) != len(n_list):
+        raise ValueError(f"concat_relu_triples: {len(bundles)} bundles vs "
+                         f"{len(n_list)} element counts")
+    whole_words = all(n % 32 == 0 for n in n_list)
+    return _concat(bundles, n_list, w, cone,
+                   _cat_bin_words if whole_words else _cat_bin_bits)
 
 
 # ---------------------------------------------------------------------------

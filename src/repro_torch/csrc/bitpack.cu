@@ -36,10 +36,22 @@
 // takes bits m..k-1 straight from them (w = k - m <= 64), with no
 // extracted copy.
 //
-// unpack: a thread per output value, in a grid-stride loop over a grid of
-// a few waves; the 32 threads of a warp read the same word of each plane
-// (one broadcast load), gather their own bit and store neighbouring
-// values.
+// unpack: its main-path call is the sign plane (w = 1), 2 rows of up to
+// 262 144 values: 4 bytes written per value against 1/8 of a byte read, a
+// call of a few microseconds that launch, the first loads' latency and
+// the stores' drain bound more than bandwidth.  So each thread writes
+// whole 16-byte vectors (4 consecutive values) and one warp store
+// instruction writes 512 contiguous bytes; the 8 lanes of a word share
+// its load (a broadcast), so each plane's word is read once per 32
+// values; each thread does kUnpackVectors vectors of a tile, with their
+// loads issued together, one plane at a time (so w > 1 waits for w loads
+// in turn; loading 8 planes before using any took 168 registers and made
+// the w = 1 shapes up to 2x slower, see PERF.md).  A block owns a tile of
+// kUnpackTile consecutive values of one row; the grid is sized to the
+// tiles (rows x tiles per row), capped at a few waves of the device's
+// SMs, with a grid-stride loop beyond.  A row whose output does not start
+// 16-byte aligned (n % 4 != 0) and a row's last n % 4 values take scalar
+// stores.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -52,7 +64,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned int kMaxGridY = 65535;
-constexpr int64_t kTargetBlocks = 4 * 8 * 132;
 
 constexpr int kGroups = 8;           // words of a row per warp, transposing
 constexpr int kBallotMaxW = 4;       // widest pack done by ballots
@@ -139,21 +150,49 @@ __global__ void pack_ballot_kernel(const T* __restrict__ v, int64_t rows,
   }
 }
 
-__global__ void unpack_kernel(const uint32_t* __restrict__ words,
-                              int64_t rows, int w, int64_t n_words, int64_t n,
-                              uint32_t* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+constexpr int kUnpackThreads = 128;
+constexpr int kUnpackVectors = 4;      // 16-byte stores per thread and tile
+constexpr int kUnpackTile = kUnpackThreads * kUnpackVectors * 4;   // values
+constexpr int kUnpackWaves = 4;
+
+__global__ void __launch_bounds__(kUnpackThreads)
+unpack_kernel(const uint32_t* __restrict__ words, int64_t rows, int w,
+              int64_t n_words, int64_t n, uint32_t* __restrict__ out) {
+  const int64_t per_row = (n + kUnpackTile - 1) / kUnpackTile;
+  // vector v of this thread: values v * 128 + lane * 4 .. + 3 of its warp's
+  // 512 in the tile
+  const int offset = (threadIdx.x / 32) * (128 * kUnpackVectors) + (threadIdx.x & 31) * 4;
+  for (int64_t tile = blockIdx.x; tile < rows * per_row; tile += gridDim.x) {
+    const int64_t row = tile / per_row;
+    const int64_t e0 = (tile - row * per_row) * kUnpackTile + offset;
     const uint32_t* src = words + row * w * n_words;
-    for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         e < n; e += stride) {
-      const uint32_t* col = src + (e >> 5);
-      const int t = static_cast<int>(e & 31);
-      uint32_t value = 0;
-      for (int i = 0; i < w; ++i) {
-        value |= ((col[i * n_words] >> t) & 1u) << i;
+    uint32_t* dst = out + row * n;
+    uint32_t vals[kUnpackVectors][4] = {};
+    for (int i = 0; i < w; ++i) {
+      const uint32_t* plane = src + i * n_words;
+#pragma unroll
+      for (int v = 0; v < kUnpackVectors; ++v) {
+        const int64_t e = e0 + v * 128;
+        if (e < n) {
+          const uint32_t nibble = (plane[e >> 5] >> (e & 31)) & 0xfu;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) vals[v][k] |= ((nibble >> k) & 1u) << i;
+        }
       }
-      out[row * n + e] = value;
+    }
+    const bool aligned = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+#pragma unroll
+    for (int v = 0; v < kUnpackVectors; ++v) {
+      const int64_t e = e0 + v * 128;
+      if (aligned && e + 4 <= n) {
+        *reinterpret_cast<uint4*>(dst + e) =
+            make_uint4(vals[v][0], vals[v][1], vals[v][2], vals[v][3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (e + k < n) dst[e + k] = vals[v][k];
+        }
+      }
     }
   }
 }
@@ -200,17 +239,21 @@ extern "C" int hb_pack_ring(const void* x, int64_t rows, int64_t n, void* out,
                                static_cast<int>(k - m), stream);
 }
 
-// words: (rows, w, W) -> out: (rows, n) values, n <= 32 W.
+// words: (rows, w, W) -> out: (rows, n) values, n <= 32 W, 1 <= w <= 32.
 extern "C" int hb_unpack(const void* words, int64_t rows, int64_t w,
                          int64_t n_words, int64_t n, void* out, void* stream) {
-  // about 4 waves of 8 blocks on each of 132 SMs in all: a block per
-  // 256 values would spend its time being scheduled, not storing
-  const int64_t per_row = (n + kThreads - 1) / kThreads;
-  int64_t blocks = (kTargetBlocks + grid_y(rows) - 1) / grid_y(rows);
-  blocks = blocks < per_row ? blocks : per_row;
-  const dim3 grid(static_cast<unsigned int>(blocks > 0 ? blocks : 1),
-                  grid_y(rows));
-  unpack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&occ, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = rows * ((n + kUnpackTile - 1) / kUnpackTile);
+  const int64_t cap = static_cast<int64_t>(kUnpackWaves) * sms * (occ / kUnpackThreads);
+  const int64_t blocks = tiles < cap ? tiles : cap;
+  unpack_kernel<<<static_cast<unsigned int>(blocks > 0 ? blocks : 1), kUnpackThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), rows, static_cast<int>(w), n_words,
       n, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());

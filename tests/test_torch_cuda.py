@@ -131,3 +131,42 @@ def test_cuda_ring_matmul_main_path_shapes_and_fold():
             (tuple(x.shape), tuple(wt.shape))
     torch.cuda.synchronize()
     assert ops.launch_counts()["ring_matmul"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_cuda_unpack_shapes_and_merge_routes():
+    """The redesigned unpack against its plain version at w = 1, 2, 8, 32;
+    n = 0 and n with n % 4 != 0 and n % 32 != 0; 1 to 300 leading rows
+    (rows of n % 4 != 0 start off 16-byte alignment and take scalar
+    stores) and two leading dims; the four sign-plane shapes.  Then the
+    triple merge on the card: the word route equals the bit route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.core import beaver, prng
+
+    gen = torch.Generator().manual_seed(3)
+    cases = [((rows,), w, n) for rows in (1, 3, 300) for w in (1, 2, 8, 32)
+             for n in (0, 1, 77, 4098, 8209)]
+    cases += [((2, 150), 8, 77)] + [((2,), 1, n) for n in chip_smoke.SIGN_PLANES]
+    ops.reset_launches()
+    for lead, w, n in cases:
+        packed = torch.randint(-2 ** 31, 2 ** 31, lead + (w, (n + 31) // 32),
+                               generator=gen, dtype=torch.int64).to(torch.int32).cuda()
+        assert torch.equal(ops.unpack(packed, n), tref.unpack(packed, n)), (lead, w, n)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["unpack"] == sum(1 for _, _, n in cases if n)
+
+    for n, w, cone in ((512, 64, False), (512, 64, True), (4096, 8, True),
+                       (256, 1, False)):
+        bundles = [beaver.gen_relu_triples(prng.PRNGKey(90 + i, "cuda"), n, w,
+                                           cone=cone) for i in range(4)]
+        ops.reset_launches()
+        words = beaver.concat_relu_triples(bundles, [n] * 4, w, cone=cone)
+        assert ops.launch_counts()["unpack"] == 0
+        bits = beaver._concat(bundles, [n] * 4, w, cone, beaver._cat_bin_bits)
+        assert ops.launch_counts()["pack"] > 0
+        for a, b in zip(chip_smoke.relu_tensors(words),
+                        chip_smoke.relu_tensors(bits)):
+            assert torch.equal(a, b), (n, w, cone)

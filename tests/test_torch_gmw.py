@@ -1,6 +1,8 @@
 """The port's GMW engine against the reference: triples, relu and relu_many
 shares bit-identical, measured rounds and bytes equal to
 ``schedule.simulate``, and the three BENCH_relu.json counts reproduced."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -27,10 +29,13 @@ def _same(jr, t):
     np.testing.assert_array_equal(tring.to_uint64_np(t), jring.to_uint64_np(jr))
 
 
+def _bins(t):
+    levels = t.bin_levels
+    return [t.bin_init] + (list(levels) if isinstance(levels, tuple) else [levels])
+
+
 def _same_triples(jt, tt):
-    jbins, tbins = [jt.bin_init], [tt.bin_init]
-    for bins, levels in ((jbins, jt.bin_levels), (tbins, tt.bin_levels)):
-        bins.extend(levels if isinstance(levels, tuple) else [levels])
+    jbins, tbins = _bins(jt), _bins(tt)
     assert len(jbins) == len(tbins)
     for jb, tb in zip(jbins, tbins):
         for f in ("a", "b", "c"):
@@ -86,6 +91,42 @@ def test_relu_many_merged_ragged_and_culled():
     merged = tbeaver.concat_relu_triples(ttr[:2], [N, N], 8)
     jmerged = jbeaver.concat_relu_triples(jtr[:2], [N, N], 8)
     _same_triples(jmerged, merged)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_triples(i: int, n: int, w: int, cone: bool):
+    return (jbeaver.gen_relu_triples(jax.random.PRNGKey(80 + i), n, w, cone=cone),
+            tbeaver.gen_relu_triples(prng.PRNGKey(80 + i, "cpu"), n, w, cone=cone))
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["dense", "cone"])
+@pytest.mark.parametrize("w", [1, 8, 64])
+@pytest.mark.parametrize("n_list", [[512, 512], [64, 4096, 32], [77, 77],
+                                    [512, 77], [77, 512]],
+                         ids=lambda ns: "-".join(map(str, ns)))
+def test_concat_relu_triples_routes_bit_identical(n_list, w, cone, monkeypatch):
+    """The merge takes the word route (torch.cat of the packed words, no
+    unpack or pack) when every n_i is a multiple of 32, the bit route
+    otherwise (a ragged last stream too: its tail bits are random and the
+    reference's repack zeroes them); either way the merged bundle equals
+    the reference's ``concat_relu_triples`` bit for bit."""
+    jt, tt = zip(*(_stream_triples(i, n, w, cone and w > 1)
+                   for i, n in enumerate(n_list)))
+    repacks = []
+    for name in ("unpack_bits", "pack_bits"):
+        fn = getattr(tshares, name)
+        monkeypatch.setattr(tshares, name,
+                            lambda *a, fn=fn, name=name: repacks.append(name) or fn(*a))
+    merged = tbeaver.concat_relu_triples(tt, n_list, w, cone=cone)
+    _same_triples(jbeaver.concat_relu_triples(jt, n_list, w, cone=cone), merged)
+    whole_words = all(n % 32 == 0 for n in n_list)
+    assert bool(repacks) != whole_words, repacks
+    if whole_words:
+        for j, member in enumerate(_bins(merged)):
+            for f in ("a", "b", "c"):
+                assert torch.equal(getattr(member, f),
+                                   torch.cat([getattr(_bins(t)[j], f) for t in tt],
+                                             dim=-1))
 
 
 @pytest.mark.parametrize("w", [8, 9, 33, 64])

@@ -214,3 +214,35 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert ops.launch_counts() == {name: 0 for name in (
         "beaver_and", "ks_mask", "ks_combine", "ks_level", "ring_matmul", "pack",
         "pack_ring", "unpack")}
+
+
+def _meta(dtype, *shape):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_I32, _I64 = torch.int32, torch.int64
+_OFF_CPU_CALLS = {
+    "beaver_and": lambda: ops.beaver_and(*(_meta(_I32, 2, 1, 4) for _ in range(5)),
+                                         _meta(_I32, 2)),
+    "ks_mask": lambda: ops.ks_mask(_meta(_I32, 2, 1, 4), _meta(_I32, 2, 1, 4),
+                                   _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4), 1),
+    "ks_combine": lambda: ops.ks_combine(*(_meta(_I32, 2, 2, 4) for _ in range(7)),
+                                         _meta(_I32, 2), _meta(_I32, 2, 1, 4)),
+    "ks_level": lambda: ops.ks_level(_meta(_I32, 2, 3, 4), _meta(_I32, 2, 3, 4),
+                                     _meta(_I32, 2, 2, 4), 0, 1),
+    "ring_matmul": lambda: ops.ring_matmul(_meta(_I64, 2, 3), _meta(_I32, 3, 2)),
+    "pack": lambda: ops.pack(_meta(_I32, 2, 64), 1),
+    "pack_ring": lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0),
+    "unpack": lambda: ops.unpack(_meta(_I32, 2, 1, 2), 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_OFF_CPU_CALLS))
+def test_wrappers_have_no_fallback_off_the_cpu(name):
+    """Only a CPU tensor takes the plain version: any other device reaches
+    the kernel's checks, which raise where the kernel cannot run."""
+    assert name in ops.launch_counts()
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="the kernel runs on CUDA"):
+        _OFF_CPU_CALLS[name]()
+    assert ops.launch_counts()[name] == 0

@@ -6,7 +6,8 @@
 (``tools/ring_matmul_bench.py`` times ring_matmul alone, with this
 script's shapes and timing, for another checkout's kernel or a variant;
 ``tools/bitpack_bench.py`` times unpack and pack at every main-path shape
-of the word-route and the bit-route triple merge.)
+of the word-route and the bit-route triple merge; ``tools/gmw_bench.py``
+times the adders' kernels at every main-path shape, and the online wall.)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -30,12 +31,19 @@ Phases (any failure raises, and the script exits non-zero):
    requests as sibling streams through ``api.compile`` and
    ``PrivateModel.__call__``, under four plans: exact, reduced ((k, m) =
    (21, 13) on every ReLU group but the last, which is culled), and the
-   same two with the MSB-cone-pruned adder (``cone=True``).  Launch
-   counters are zeroed just before each run and read just after; each run
-   must launch exactly the kernels of its path (``PATH_KERNELS``), and
-   unpack once per ReLU (the sign plane).  Measured fused rounds and bytes
+   same two with the MSB-cone-pruned adder (``cone=True``).  Per plan:
+   offline, the session's triple pool for 1 + ``ONLINE_CALLS`` calls
+   (``Session.offline``, 4 streams) is generated before any timer (its
+   wall and device bytes printed); then one untimed warm-up call; then
+   ``ONLINE_CALLS`` timed calls (median, min, max).  Launch counters are
+   zeroed just before each call and read just after; each call must
+   launch exactly the kernels of its path (``PATH_KERNELS``), unpack once
+   per ReLU (the sign plane) and the dense adder's kernels as often as
+   its levels say (``adder_launches``).  Measured fused rounds and bytes
    must equal ``plan.schedule(streams=4)``; the exact plans' revealed
-   logits must match the plaintext forward within the stated tolerance;
+   logits must match the plaintext forward within the stated tolerance.
+   One more exact call runs under torch.profiler: the whole online call's
+   device-busy share;
 5. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
    (not a multiple of 32, so their triples merge at the bit level, through
    unpack and pack), dense at (64, 0) and with the cone at (21, 13), each
@@ -45,8 +53,9 @@ Phases (any failure raises, and the script exits non-zero):
    dense and cone) by the word route and by the bit route (the ragged
    case's), timed both ways and required ``torch.equal``;
 7. stem breakdown: the exact plan's stem layer for 4 requests timed by
-   part (conv, triples, protocol; the adder dense and cone-pruned), and
-   the device's busy share of one traced run of it.
+   part (conv; the triples' offline generation into a pool; the online
+   protocol from the pool; the adder dense and cone-pruned), and the
+   device's busy share of one traced online run of it (conv + protocol).
 
 Output: a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -89,18 +98,22 @@ SIGN_PLANES = tuple(sorted({STREAMS * n for n, _ in RELU_GROUPS}, reverse=True))
 RAGGED_N = 8209
 # the kernels each run must launch, and no others: pack_ring and unpack
 # (the sign plane) on every ReLU, ring_matmul on every conv and fc; the
-# dense adder runs on beaver_and, ks_mask and ks_combine, the cone adder on
-# beaver_and and ks_level.  Every ResNet-18 group's element count is a
+# dense adder runs on beaver_and, ks_mask (its first level), ks_step (one
+# per level after the first) and ks_combine (its last level), the cone
+# adder on beaver_and and ks_level.  Every ResNet-18 group's element count is a
 # multiple of 32, so the 4 streams' triples merge by word concatenation;
 # the ragged-merge path's are not, and its merges unpack and pack.
 _RELU = {"beaver_and", "pack_ring", "unpack"}
-_DENSE, _CONE = {"ks_mask", "ks_combine"}, {"ks_level"}
+_DENSE, _CONE = {"ks_mask", "ks_step", "ks_combine"}, {"ks_level"}
 PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "reduced": _RELU | {"ring_matmul"} | _DENSE,
                 "exact-cone": _RELU | {"ring_matmul"} | _CONE,
                 "reduced-cone": _RELU | {"ring_matmul"} | _CONE,
                 "ragged-merge": _RELU | {"pack"} | _DENSE,
                 "ragged-merge-cone": _RELU | {"pack"} | _CONE}
+# timed online calls per plan, after one warm-up call; the pool holds
+# triples for all of them (1 + ONLINE_CALLS requests of 4 streams)
+ONLINE_CALLS = 3
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -333,6 +346,23 @@ def sign_plane_launches(plan: str) -> dict:
     return out
 
 
+def adder_launches(plan: str) -> dict:
+    """The dense adder's launches per main-path call: per ReLU of width
+    w > 1 with L = ceil(log2 w) levels, ks_mask and ks_combine once and
+    ks_step L - 1 times; none on the cone plans."""
+    from repro_torch.core.schedule import n_levels
+
+    out = {"ks_mask": 0, "ks_step": 0, "ks_combine": 0}
+    if plan.endswith("cone"):
+        return out
+    for (_, relus), w in zip(RELU_GROUPS, PLAN_WIDTHS[plan]):
+        if w > 1:
+            out["ks_mask"] += relus
+            out["ks_combine"] += relus
+            out["ks_step"] += relus * (n_levels(w) - 1)
+    return out
+
+
 def sign_plane_sums(sign_rows) -> dict:
     """Per plan, unpack's launches x ms per main-path call over the sign
     planes, from their rows (shape ``R=2 w=1 W=.. n=..``)."""
@@ -380,7 +410,7 @@ def kernel_phase():
         record("ks_mask", "src/repro_torch/csrc/gmw_round.cu",
                "src/repro/kernels/gmw_round.py:73",
                lambda: ops.ks_mask(g, p, a2, b2, 1),
-               lambda: ref.ks_mask(g, p, a2, b2, 1),
+               lambda: torch.stack(ref.ks_mask(g, p, a2, b2, 1), dim=1),
                40 * P * w * n_words, shape=f"P={P} w={w} W={n_words} shift=1",
                into=into)
         dd, ee, c2 = (words(gen, P, 2 * w, n_words) for _ in range(3))
@@ -392,6 +422,18 @@ def kernel_phase():
                lambda: ref.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2,
                                       c2, sel, g),
                68 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words}",
+               into=into)
+        # the fused step between two exchanges (level 0's combine, level
+        # 1's mask): 96 bytes per (party, plane of w, word), g in place
+        sent, a3, b3 = words(gen, P, 2, 2 * w, n_words), a2.flip(0), b2.flip(0)
+        g3, g4 = g.clone(), g.clone()
+        record("ks_step", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:105",
+               lambda: ops.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2,
+                                   sel, g3, a3, b3, 2),
+               lambda: ref.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2,
+                                   sel, g4, a3, b3, 2),
+               96 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words} shift=2",
                into=into)
     # the cone adder's combine at the stem's first level, in place on the
     # adder's (P, w-1, W) g and p planes at rows 2, 4, ..., w-2 (n = 31 of the
@@ -461,21 +503,17 @@ def kernel_phase():
     return rows, extra
 
 
-def main_path_phase():
-    """Full-width ResNet-18, 4 sibling streams, exact and reduced plans,
-    each with the dense and the cone-pruned adder."""
+def resnet_setup():
+    """Full-width ResNet-18 (seeded weights), its four plans, the 4
+    requests' inputs and the plaintext logits."""
     import dataclasses
 
-    from repro_torch import api
     from repro_torch.configs import RESNET18
-    from repro_torch.core import comm as comm_lib, prng
     from repro_torch.core.hummingbird import HBConfig, HBLayer
-    from repro_torch.kernels import ops
     from repro_torch.models import resnet
 
     cfg = RESNET18
     params = resnet.init(cfg, seed=0, device="cuda")
-    plaintext = resnet.ResNet(params, cfg)
     plan_exact = resnet.trace(params, cfg, batch=1)
     plan_reduced = plan_exact.with_hb(HBConfig(
         tuple([HBLayer(k=21, m=13)] * (plan_exact.n_groups - 1)
@@ -484,54 +522,123 @@ def main_path_phase():
     xs = [(torch.rand((1, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2 - 1).cuda()
           for _ in range(STREAMS)]
     with torch.no_grad():
+        plaintext = resnet.ResNet(params, cfg)
         want = torch.cat([plaintext(x) for x in xs])
+    plans = {"exact": plan_exact, "reduced": plan_reduced,
+             "exact-cone": dataclasses.replace(plan_exact, cone=True),
+             "reduced-cone": dataclasses.replace(plan_reduced, cone=True)}
+    return cfg, params, plans, xs, want
+
+
+def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
+                 profile=False):
+    """One plan's offline phase, warm-up and ``calls`` timed online calls
+    (host clock around work ended by ``torch.cuda.synchronize()``), each
+    checked: rounds and bytes equal to the schedule, the exact plans'
+    reveals within the tolerance, and (``expect``) exactly the path's
+    kernels, the dense adder's launches as its levels say and one unpack
+    per ReLU.  ``profile`` runs one more call under torch.profiler."""
+    from repro_torch import api
+    from repro_torch.core import comm as comm_lib, prng
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+
+    cfg, params, _, xs, want = setup
 
     def afn(p, x, relu_fn=None):
         return resnet.apply(p, x, cfg, relu_fn=relu_fn)
 
-    plans = {"exact": plan_exact, "reduced": plan_reduced,
-             "exact-cone": dataclasses.replace(plan_exact, cone=True),
-             "reduced-cone": dataclasses.replace(plan_reduced, cone=True)}
-    runs, launches = {}, {}
-    for name, plan in plans.items():
-        cc = comm_lib.CoalescingComm(comm_lib.SimComm())
-        model = api.compile(afn, params, cfg, plan,
-                            api.Session(key=0, comm=cc, device="cuda"))
-        enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), x)
-               for i, x in enumerate(xs)]
+    cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+    requests = 1 + calls + int(profile)
+    session = api.Session(key=0, comm=cc, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.offline(prng.PRNGKey(7, "cuda"), plan, requests=requests,
+                    streams=STREAMS)
+    torch.cuda.synchronize()
+    offline_s = time.perf_counter() - t0
+    pool_bytes = session.provider.device_bytes()
+    model = api.compile(afn, params, cfg, plan, session)
+    enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), x) for i, x in enumerate(xs)]
+    sched = plan.schedule(streams=STREAMS)
+    model(enc)                                          # warm-up, untimed
+    walls, errs, counts = [], [], None
+    for _ in range(calls):
+        r0, b0 = cc.n_rounds, cc.bytes_tx
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
         outs = model(enc)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls.append(time.perf_counter() - t0)
         counts = ops.launch_counts()
         launched = {k for k, v in counts.items() if v}
-        if launched != PATH_KERNELS[name]:
+        if expect is not None and launched != expect:
+            raise AssertionError(f"{name}: launched {sorted(launched)}, its path "
+                                 f"runs {sorted(expect)}")
+        if expect is not None:
+            want_adder = adder_launches(name)
+            want_adder["unpack"] = sum(sign_plane_launches(name).values())
+            got_adder = {k: counts[k] for k in want_adder}
+            if got_adder != want_adder:
+                raise AssertionError(f"{name}: launched {got_adder}, its "
+                                     f"levels and ReLUs say {want_adder}")
+        if (cc.n_rounds - r0, cc.bytes_tx - b0) != (sched.n_rounds, sched.bytes_tx):
             raise AssertionError(
-                f"{name}: launched {sorted(launched)}, its path runs "
-                f"{sorted(PATH_KERNELS[name])}")
-        sched = plan.schedule(streams=STREAMS)
-        if (cc.n_rounds, cc.bytes_tx) != (sched.n_rounds, sched.bytes_tx):
-            raise AssertionError(
-                f"{name}: measured {cc.n_rounds} rounds / {cc.bytes_tx} B != "
-                f"schedule {sched.n_rounds} / {sched.bytes_tx}")
+                f"{name}: measured {cc.n_rounds - r0} rounds / {cc.bytes_tx - b0} "
+                f"B != schedule {sched.n_rounds} / {sched.bytes_tx}")
         got = torch.cat([o.reveal() for o in outs])
         if got.shape != want.shape or not torch.isfinite(got).all():
             raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
-        err = float((got - want).abs().max())
+        errs.append(float((got - want).abs().max()))
         if name.startswith("exact") and \
-                err > ATOL + RTOL * float(want.abs().max()):
-            raise AssertionError(f"{name} plan: max error {err} vs plaintext")
-        for k, v in counts.items():
+                errs[-1] > ATOL + RTOL * float(want.abs().max()):
+            raise AssertionError(f"{name} plan: max error {errs[-1]} vs plaintext")
+    out = {"offline_s": offline_s, "offline_s_per_call": offline_s / requests,
+           "pool_requests": requests, "pool_bytes": pool_bytes,
+           "online_s": walls, "online_median_s": statistics.median(walls),
+           "online_min_s": min(walls), "online_max_s": max(walls),
+           "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
+           "max_abs_err_vs_plaintext": max(errs), "launches": counts}
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            model(enc)
+            torch.cuda.synchronize()
+        busy_us, span_us, n_ops, top = trace_busy(prof)
+        out["profiled"] = {"span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
+                           "device_ops": n_ops, "device_busy_share": busy_us / span_us,
+                           "top_device_ops_us": top}
+    print(f"main path {name}: offline {offline_s:.3f} s for {requests} calls "
+          f"({offline_s / requests:.3f} s per call, pool {pool_bytes} B on the "
+          f"device); online per call ({STREAMS} requests) median "
+          f"{out['online_median_s']:.4f} s, min {out['online_min_s']:.4f}, max "
+          f"{out['online_max_s']:.4f} over {calls} warm calls; {sched.n_rounds} "
+          f"rounds, {sched.bytes_tx} B, launches {counts}, max |reveal - "
+          f"plaintext| {max(errs):.3g} (max |logit| {float(want.abs().max()):.3g})",
+          flush=True)
+    if profile:
+        pr = out["profiled"]
+        print(f"main path {name}, one online call under the profiler: "
+              f"{pr['device_ops']} device ops busy {pr['device_busy_s']:.4f} s of a "
+              f"{pr['span_s']:.4f} s trace = {100 * pr['device_busy_share']:.1f}%; "
+              f"most device time: {pr['top_device_ops_us']}", flush=True)
+    return out
+
+
+def main_path_phase():
+    """Full-width ResNet-18, 4 sibling streams, exact and reduced plans,
+    each with the dense and the cone-pruned adder: offline pool, warm-up,
+    timed online calls."""
+    setup = resnet_setup()
+    runs, launches = {}, {}
+    for name, plan in setup[2].items():
+        runs[name] = online_calls(name, plan, setup, expect=PATH_KERNELS[name],
+                                  profile=name == "exact")
+        for k, v in runs[name]["launches"].items():
             launches.setdefault(k, {})[name] = v
-        runs[name] = {"wall_s": wall, "rounds": cc.n_rounds,
-                      "bytes": cc.bytes_tx, "max_abs_err_vs_plaintext": err,
-                      "launches": counts}
-        print(f"main path {name}: {wall:.3f} s per call ({STREAMS} requests), "
-              f"{cc.n_rounds} rounds, {cc.bytes_tx} B, launches {counts}, "
-              f"max |reveal - plaintext| {err:.3g} "
-              f"(max |logit| {float(want.abs().max()):.3g})", flush=True)
     return runs, launches
 
 
@@ -582,14 +689,6 @@ def ragged_merge_phase():
     return runs, launches
 
 
-def relu_tensors(t) -> list:
-    """Every tensor of a ReluTriples bundle: the packed binary members'
-    (int32) first, then the arithmetic ones (int64)."""
-    levels = t.bin_levels if isinstance(t.bin_levels, tuple) else (t.bin_levels,)
-    return [getattr(m, f) for m in (t.bin_init, *levels, t.b2a, t.mult)
-            for f in ("a", "b", "c")]
-
-
 def merge_phase(flush):
     """The stem's 4 streams' triples merged by ``concat_relu_triples`` (the
     word route) and by the bit route of the ragged case
@@ -609,10 +708,10 @@ def merge_phase(flush):
                                                        cone=cone),
             "bit": lambda: beaver._concat(bundles, [n] * STREAMS, w, cone,
                                           beaver._cat_bin_bits)}
-        merged = {r: relu_tensors(fn()) for r, fn in routes.items()}
+        merged = {r: beaver.relu_tensors(fn()) for r, fn in routes.items()}
         if not all(torch.equal(a, b) for a, b in zip(merged["word"], merged["bit"])):
             raise AssertionError(f"merge {plan}: the word and bit routes differ")
-        members = [t for b in bundles for t in relu_tensors(b)]
+        members = [t for b in bundles for t in beaver.relu_tensors(b)]
         word_bytes = sum(2 * t.numel() * t.element_size() for t in members)
         bits = sum(32 * t.numel() for t in members if t.dtype == torch.int32)
         traffic = {"word": word_bytes, "bit": word_bytes + 16 * bits}
@@ -630,10 +729,11 @@ def merge_phase(flush):
 
 
 def trace_busy(prof):
-    """(busy us, span us, device ops) of one profiler trace: the union of
-    the device's kernel, memcpy and memset intervals, and the span from the
-    trace's first event to its last."""
-    path = os.path.join(ROOT, "build", "stem_trace.json")
+    """(busy us, span us, device ops, top) of one profiler trace: the union
+    of the device's kernel, memcpy and memset intervals, the span from the
+    trace's first event to its last, and the 8 device-op names with the
+    most summed time ([name, us, count], the name cut to 60 characters)."""
+    path = os.path.join(ROOT, "build", "profile_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -642,9 +742,17 @@ def trace_busy(prof):
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     timed = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
              for e in events if e.get("ph") == "X"]
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                    for e in events if e.get("ph") == "X"
-                    and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+                    for e in ops)
+    by_name = {}
+    for e in ops:
+        rec = by_name.setdefault(str(e.get("name"))[:60], [0.0, 0])
+        rec[0] += float(e.get("dur", 0))
+        rec[1] += 1
+    top = sorted(([n, us, c] for n, (us, c) in by_name.items()),
+                 key=lambda r: -r[1])[:8]
     if not device:
         raise AssertionError("the profiler traced no device activity")
     busy, (start, end) = 0.0, device[0]
@@ -656,17 +764,20 @@ def trace_busy(prof):
             end = max(end, b)
     busy += end - start
     span = max(b for _, b in timed) - min(a for a, _ in timed)
-    return busy, span, len(device)
+    return busy, span, len(device), top
 
 
 def stem_breakdown_phase():
     """Where the time of one ReLU layer goes: the exact plan's stem layer
     (conv + ReLU) for 4 requests, timed by part on the host clock around
-    synchronised work, with the dense and the cone adder in turns (dense,
+    synchronised work: the conv; the triples' offline generation (one
+    ``EagerTTP`` pool for the 4 streams); the online protocol, its triples
+    popped from that pool.  The dense and the cone adder in turns (dense,
     cone, cone, dense; the faster of each pair is kept), then the dense
-    layer once more under torch.profiler for the device's busy share of
-    that one traced run (the profiler slows the host, so the share is
-    likely below the unprofiled run's)."""
+    layer's online part (conv + protocol, triples pooled beforehand) once
+    more under torch.profiler for the device's busy share of that one
+    traced run (the profiler slows the host, so the share is likely below
+    the unprofiled run's)."""
     from repro_torch.configs import RESNET18
     from repro_torch.core import beaver, comm as comm_lib, gmw, prng
     from repro_torch.core.mpc_tensor import MPCTensor
@@ -685,9 +796,11 @@ def stem_breakdown_phase():
         return [x.conv2d_public(w, 1, 1).add_public(b[:, None, None]) for x in xs]
 
     def triples(cone=False):
-        return [beaver.gen_relu_triples(k, n, 64, cone=cone) for k in keys]
+        return beaver.EagerTTP(prng.PRNGKey(7, "cuda"), [(n, 64)], cone=cone,
+                               streams=STREAMS)
 
-    def protocol(hs, tris, cone=False):
+    def protocol(hs, pool, cone=False):
+        tris = [pool.relu_triples(n, 64, cone=cone) for _ in range(STREAMS)]
         return gmw.relu_many(keys, [h.data.reshape(2, n) for h in hs], tris,
                              comm_lib.CoalescingComm(), [(64, 0)] * STREAMS,
                              cone=cone)
@@ -704,28 +817,30 @@ def stem_breakdown_phase():
     hs, t_conv = timed(conv)
     parts = {False: [], True: []}
     for cone in (False, True, True, False):
-        tris, t_triples = timed(triples, cone)
-        _, t_protocol = timed(protocol, hs, tris, cone=cone)
+        pool, t_triples = timed(triples, cone)
+        _, t_protocol = timed(protocol, hs, pool, cone=cone)
         parts[cone].append((t_triples, t_protocol))
     (t_triples, t_protocol), (c_triples, c_protocol) = (
         tuple(min(t[i] for t in parts[cone]) for i in range(2))
         for cone in (False, True))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pool = triples()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        protocol(conv(), triples())
+        protocol(conv(), pool)
         torch.cuda.synchronize()
-    busy_us, span_us, n_kernels = trace_busy(prof)
-    out = {"conv_s": t_conv, "triples_s": t_triples, "protocol_s": t_protocol,
-           "cone_triples_s": c_triples, "cone_protocol_s": c_protocol,
+    busy_us, span_us, n_kernels, _ = trace_busy(prof)
+    out = {"conv_s": t_conv, "triples_offline_s": t_triples,
+           "protocol_online_s": t_protocol, "cone_triples_offline_s": c_triples,
+           "cone_protocol_online_s": c_protocol,
            "profiled_span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
            "device_kernels": n_kernels, "device_busy_share": busy_us / span_us}
-    print(f"stem layer, 4 requests: conv {t_conv:.4f} s, triples "
-          f"{t_triples:.4f} s, protocol {t_protocol:.4f} s (cone adder: "
-          f"triples {c_triples:.4f} s, protocol {c_protocol:.4f} s); under "
-          f"the profiler: {n_kernels} device ops busy {busy_us / 1e6:.4f} s "
-          f"of a {span_us / 1e6:.4f} s trace = {100 * busy_us / span_us:.1f}%",
-          flush=True)
+    print(f"stem layer, 4 requests: conv {t_conv:.4f} s, triples offline "
+          f"(pool) {t_triples:.4f} s, protocol online {t_protocol:.4f} s (cone "
+          f"adder: triples {c_triples:.4f} s, protocol {c_protocol:.4f} s); "
+          f"online under the profiler: {n_kernels} device ops busy "
+          f"{busy_us / 1e6:.4f} s of a {span_us / 1e6:.4f} s trace = "
+          f"{100 * busy_us / span_us:.1f}%", flush=True)
     return out
 
 
@@ -747,11 +862,6 @@ def main() -> None:
     if set(launches["ring_matmul"].values()) != {per_call}:
         raise AssertionError(f"ring_matmul launched {launches['ring_matmul']} "
                              f"times, its shape table counts {per_call}")
-    for plan, n in launches["unpack"].items():
-        if n != sum(sign_plane_launches(plan).values()):
-            raise AssertionError(f"{plan}: unpack launched {n} times, once per "
-                                 f"ReLU's sign plane is "
-                                 f"{sum(sign_plane_launches(plan).values())}")
     ragged, ragged_launches = ragged_merge_phase()
     for k, by_path in ragged_launches.items():
         launches.setdefault(k, {}).update(by_path)

@@ -24,13 +24,15 @@ class Session:
       ``CoalescingComm`` or ``CountingComm`` to measure rounds and bytes);
     - ``key``: base PRNG key (or int seed); ``next_key()`` advances it;
     - ``provider``: triple provider (default ``InlineTTP``: triples derived
-      inline from each call's key);
+      inline from each call's key; ``offline`` switches to a pool made up
+      front);
     - ``device``: where shares, keys and kernels live (default ``"cuda"``).
 
     Example::
 
         session = Session(key=0)                       # on the GPU
         cpu = Session(key=0, device="cpu")             # tests
+        pooled = Session(key=0).offline(prng.PRNGKey(7), plan, requests=16)
     """
 
     def __init__(self, key: Union[int, torch.Tensor, None] = None, comm=None,
@@ -53,3 +55,14 @@ class Session:
         """Per-request key ``fold_in(seed, request_id)``, independent of the
         ``next_key`` stream and of admission order."""
         return prng.fold_in(self._base_key, request_id)
+
+    def offline(self, key: torch.Tensor, plan, requests: int = 1,
+                streams: int = 1) -> "Session":
+        """Switch this session to a triple pool generated now, on the
+        session's device, for ``requests`` sequential replays of ``plan``,
+        each over ``streams`` sibling streams (offline-TTP serving): the
+        calls that follow only pop bundles."""
+        self.provider = beaver.EagerTTP(key.to(self.device), plan.triple_specs(),
+                                        cone=plan.cone, requests=requests,
+                                        streams=streams)
+        return self

@@ -8,7 +8,8 @@ members are int64 ring tensors, binary members int32 packed words.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional, Sequence, Tuple, Union
+from typing import (Iterable, List, Optional, Protocol, Sequence, Tuple, Union,
+                    runtime_checkable)
 
 import torch
 
@@ -163,6 +164,37 @@ def concat_relu_triples(bundles: Sequence[ReluTriples], n_list: Sequence[int],
 # Triple providers: who supplies the ReluTriples each protocol call consumes
 # ---------------------------------------------------------------------------
 
+def gen_plan_triples(key: torch.Tensor, specs: Sequence[Tuple[int, int]],
+                     cone: bool = False) -> List[Optional[ReluTriples]]:
+    """One ReluTriples bundle per (n_elements, width) spec, in order, each
+    from its own split of ``key``; culled (width 0) and empty specs map to
+    None.  The offline TTP's bulk generator behind ``Plan.triple_specs()``."""
+    keys = prng.split(key, max(len(specs), 1))
+    return [None if w == 0 or n == 0 else gen_relu_triples(k, n, w, cone=cone)
+            for k, (n, w) in zip(keys, specs)]
+
+
+@runtime_checkable
+class TripleProvider(Protocol):
+    """Where a Session's protocol calls get their Beaver triples.
+
+    ``relu_triples`` is called once per ReLU call per stream, in call
+    order; None means "derive the triples inline from the call's own PRNG
+    key".  Width-0 and zero-element calls return None and consume nothing.
+    ``checkpoint() -> token`` / ``rollback(token)`` restore the provider's
+    stream position, so a retried batch draws the same triples."""
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> Optional[ReluTriples]:
+        ...
+
+    def checkpoint(self):
+        ...
+
+    def rollback(self, token) -> None:
+        ...
+
+
 class InlineTTP:
     """Default provider: triples are derived inline from each protocol
     call's PRNG key (returns None, as the reference's ``InlineTTP``)."""
@@ -178,9 +210,37 @@ class InlineTTP:
         pass
 
 
+class StreamingTTP:
+    """Per-call streaming TTP: each bundle is generated on demand from this
+    provider's own PRNG stream (independent of the protocol keys), on the
+    key's device.
+
+    Example::
+
+        session = api.Session(key=0, provider=StreamingTTP(prng.PRNGKey(7)))
+    """
+
+    def __init__(self, key: torch.Tensor):
+        self._key = key
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> Optional[ReluTriples]:
+        if width == 0 or n_elements == 0:
+            return None
+        self._key, k = prng.split(self._key)
+        return gen_relu_triples(k, n_elements, width, cone=cone)
+
+    def checkpoint(self) -> torch.Tensor:
+        return self._key
+
+    def rollback(self, token: torch.Tensor) -> None:
+        self._key = token
+
+
 class TriplePool:
     """Precomputed pool consumed in call order: one entry per ReLU call
-    per stream, call-major / stream-minor, None for culled or empty calls."""
+    per stream, call-major / stream-minor, None for culled or empty calls
+    (the layout ``gen_plan_triples`` and ``EagerTTP`` emit)."""
 
     def __init__(self, bundles: Iterable[Optional[ReluTriples]]):
         self._bundles: List[Optional[ReluTriples]] = list(bundles)
@@ -201,3 +261,84 @@ class TriplePool:
 
     def rollback(self, token: int) -> None:
         self.consumed = token
+
+    def device_bytes(self) -> int:
+        """Bytes the pool's tensors hold (the offline artifact's size)."""
+        return sum(t.numel() * t.element_size() for b in self._bundles
+                   if b is not None for t in relu_tensors(b))
+
+
+class MeteredProvider:
+    """Per-tenant triple metering: wraps any ``TripleProvider``, counts the
+    bundles and DReLU elements each ReLU call requires, and optionally
+    enforces an element budget (``errors.TripleBudgetExceeded``).  Width-0
+    and zero-element calls consume nothing.
+
+    Example::
+
+        provider = MeteredProvider(InlineTTP(), budget_elements=10_000)
+        provider.relu_triples(4096, 8)        # meters 4096 elements
+    """
+
+    def __init__(self, base: Optional[TripleProvider] = None,
+                 budget_elements: Optional[int] = None):
+        self.base = base if base is not None else InlineTTP()
+        self.budget_elements = budget_elements
+        self.consumed_elements = 0
+        self.consumed_bundles = 0
+
+    @property
+    def remaining_elements(self) -> Optional[int]:
+        if self.budget_elements is None:
+            return None
+        return max(0, self.budget_elements - self.consumed_elements)
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> Optional[ReluTriples]:
+        if width == 0 or n_elements == 0:
+            return self.base.relu_triples(n_elements, width, cone=cone)
+        if (self.budget_elements is not None
+                and self.consumed_elements + n_elements > self.budget_elements):
+            raise errors.TripleBudgetExceeded(
+                f"triple budget exhausted: {self.consumed_elements} of "
+                f"{self.budget_elements} elements consumed, next call needs "
+                f"{n_elements}")
+        self.consumed_bundles += 1
+        self.consumed_elements += n_elements
+        return self.base.relu_triples(n_elements, width, cone=cone)
+
+    def checkpoint(self):
+        """The meter's counters and the base provider's position, so a
+        rolled-back retry draws the same triples and bills once."""
+        return (self.consumed_elements, self.consumed_bundles,
+                self.base.checkpoint())
+
+    def rollback(self, token) -> None:
+        self.consumed_elements, self.consumed_bundles, base_token = token
+        self.base.rollback(base_token)
+
+
+class EagerTTP(TriplePool):
+    """Eager offline TTP: generates, up front, the whole pool for
+    ``requests`` sequential replays of a plan's triple specs, each replay
+    serving ``streams`` sibling streams, laid out in the order the replays
+    pop it (within a replay call-major / stream-minor, replays in turn).
+
+    Example::
+
+        ttp = EagerTTP(prng.PRNGKey(7), plan.triple_specs(), requests=16)
+        session = api.Session(key=0, provider=ttp)
+    """
+
+    def __init__(self, key: torch.Tensor, specs: Sequence[Tuple[int, int]],
+                 cone: bool = False, requests: int = 1, streams: int = 1):
+        expanded = [s for s in specs for _ in range(streams)] * requests
+        super().__init__(gen_plan_triples(key, expanded, cone=cone))
+
+
+def relu_tensors(t: ReluTriples) -> List[torch.Tensor]:
+    """Every tensor of a bundle: the packed binary members' (int32) first,
+    then the arithmetic ones (int64)."""
+    levels = t.bin_levels if isinstance(t.bin_levels, tuple) else (t.bin_levels,)
+    return [getattr(m, f) for m in (t.bin_init, *levels, t.b2a, t.mult)
+            for f in ("a", "b", "c")]

@@ -15,7 +15,9 @@ per communication round and is sent the peer's payload back:
 coalesce each round into ONE exchange.  Round-local compute runs in the
 CUDA kernels of ``kernels/ops.py``: ``pack_ring`` packs the reduced-ring
 bits straight from the shares, the dense Kogge-Stone adder runs on
-``beaver_and``, ``ks_mask`` and ``ks_combine``, the MSB-cone-pruned adder
+``beaver_and``, ``ks_mask`` (its first level), ``ks_step`` (one launch
+between two exchanges) and ``ks_combine`` (its last level), the
+MSB-cone-pruned adder
 (``cone=True``) on ``beaver_and`` and ``ks_level``, and ``unpack`` opens
 the sign plane.  Shares are bit-identical to the reference for the same
 keys, triples and inputs.
@@ -109,10 +111,13 @@ def and_open(x, y, triple: beaver.BinTriple, comm) -> torch.Tensor:
 def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
                       cone: bool):
     """Round generator for the MSB of (x + y mod 2^w).  Dense: the initial
-    AND, then per level one ``ks_mask`` pass, one exchange and one
-    ``ks_combine`` pass.  Cone: only the backward cone of the carry into
-    bit w-1 (``schedule.cone_sets``); each non-empty level is one AND round
-    and one ``ks_level`` combine."""
+    AND, then one exchange per level; level 0's (d, e) come from
+    ``ks_mask``, every later level's from ``ks_step`` (the previous
+    level's combine fused with this level's mask, g updated in place),
+    each as the (P, 2, 2w, W) payload the generator yields; the last
+    level's combine keeps only g (``ks_combine`` without p).  Cone: only
+    the backward cone of the carry into bit w-1 (``schedule.cone_sets``);
+    each non-empty level is one AND round and one ``ks_level`` combine."""
     p0 = xw ^ yw                      # initial propagate (local)
     if w == 1:
         return p0[..., 0, :]
@@ -120,14 +125,23 @@ def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
         g = yield from _cone_generate_rounds(xw, yw, p0, triples, comm, w)
         return p0[..., w - 1, :] ^ g[..., w - 2, :]
     g = yield from _and_open_rounds(xw, yw, triples.bin_init, comm)
-    p = p0
     sel = _sel_words(comm, xw)
-    for lvl in range(schedule_lib.n_levels(w)):
-        tri = triples.bin_levels[lvl]
-        d_half, e_half = kops.ks_mask(g, p, tri.a, tri.b, 1 << lvl)
-        opened = yield torch.stack([d_half, e_half], dim=1)   # one round
-        g, p = kops.ks_combine(d_half, opened[:, 0], e_half, opened[:, 1],
-                               tri.a, tri.b, tri.c, sel, g)
+    n_lv = schedule_lib.n_levels(w)
+    levels = triples.bin_levels
+    # each level's send buffer is new (the exchange may still hold the last)
+    send = kops.ks_mask(g, p0, levels.a[0], levels.b[0], 1)
+    for lvl in range(n_lv):
+        tri = levels[lvl]
+        opened = yield send                                   # one round
+        if lvl + 1 < n_lv:
+            nxt = levels[lvl + 1]
+            g, send = kops.ks_step(send, opened[:, 0], opened[:, 1], tri.a,
+                                   tri.b, tri.c, sel, g, nxt.a, nxt.b,
+                                   2 << lvl)
+        else:
+            g, _ = kops.ks_combine(send[:, 0], opened[:, 0], send[:, 1],
+                                   opened[:, 1], tri.a, tri.b, tri.c, sel, g,
+                                   need_p=False)
     # carry into bit (w-1) is the prefix-generate of bit (w-2)
     return p0[..., w - 1, :] ^ g[..., w - 2, :]
 

@@ -16,9 +16,14 @@ the card (design notes in the CUDA sources):
 - ``beaver_and``: ``kernels/gmw_round.py:45`` ``beaver_and_pallas``;
   bytes, 24 per word (5 inputs, 1 output).
 - ``ks_mask``: ``kernels/gmw_round.py:73`` ``ks_mask_pallas``; bytes, 40
-  per (party, plane of w, word).
+  per (party, plane of w, word), written as the level's send buffer.  The
+  dense adder runs it for its first level only.
 - ``ks_combine``: ``kernels/gmw_round.py:105`` ``ks_combine_pallas``;
-  bytes, 68 per (party, plane of w, word).
+  bytes, 68 per (party, plane of w, word), 36 when only g' is asked for
+  (the dense adder's last level).
+- ``ks_step``: ``ks_combine_pallas`` of one dense level fused with
+  ``ks_mask_pallas`` of the next; bytes, 96 per (party, plane of w, word),
+  where the two passes and the stack between them moved 140.
 - ``ks_level``: ``kernels/gmw_round.py:134`` ``ks_level_pallas``; bytes,
   20 per (party, level plane, word), in place on the adder's planes.
 - ``ring_matmul``: ``kernels/ring_matmul.py:88`` ``ring_matmul_pallas``;
@@ -45,9 +50,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
     "hb_beaver_and": ("gmw_round.cu", [_P] * 7 + [_I, _I, _P]),
-    "hb_ks_mask": ("gmw_round.cu", [_P] * 6 + [_I] * 4 + [_P]),
+    "hb_ks_mask": ("gmw_round.cu", [_P] * 5 + [_I] * 4 + [_P]),
     "hb_ks_combine": ("gmw_round.cu",
-                      [_P, _P, _I, _P, _P, _I] + [_P] * 7 + [_I] * 3 + [_P]),
+                      [_P, _I] * 4 + [_P] * 7 + [_I] * 3 + [_P]),
+    "hb_ks_step": ("gmw_round.cu",
+                   [_P, _P, _I, _P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
     "hb_ks_level": ("gmw_round.cu", [_P, _P, _P] + [_I] * 7 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
     "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
@@ -131,50 +138,97 @@ def beaver_and(d_open, e_open, a, b, c, sel):
 def ks_mask(g, p, a, b, shift: int):
     """Pre-exchange Kogge-Stone level: d = [p, p] ^ a and
     e = [g >> shift, p >> shift] ^ b (plane shifts with zero fill).
-    g, p: (P, w, W); a, b: (P, 2w, W) int32 words."""
+    g, p: (P, w, W); a, b: (P, 2w, W) int32 words.  Returns the level's
+    send buffer, (P, 2, 2w, W): d then e per party, the payload of its
+    exchange (the plain version's (d, e), stacked)."""
     if _on_cpu(g):
-        return ref.ks_mask(g, p, a, b, shift)
+        return torch.stack(ref.ks_mask(g, p, a, b, shift), dim=1)
     _check("ks_mask", [g, p, a, b], torch.int32)
     n_parties, w, words = g.shape
     if p.shape != g.shape or a.shape != (n_parties, 2 * w, words) \
             or b.shape != a.shape:
         raise ValueError("ks_mask: expected g, p (P, w, W) and a, b (P, 2w, W)")
-    d = torch.empty_like(a)
-    e = torch.empty_like(a)
+    send = torch.empty((n_parties, 2, 2 * w, words), dtype=torch.int32,
+                       device=g.device)
     if g.numel():
         _launch("hb_ks_mask", g.data_ptr(), p.data_ptr(), a.data_ptr(),
-                b.data_ptr(), d.data_ptr(), e.data_ptr(), n_parties, w, words,
-                int(shift))
+                b.data_ptr(), send.data_ptr(), n_parties, w, words, int(shift))
         ks_mask.launches += 1
-    return d, e
+    return send
 
 
-def ks_combine(d, d_other, e, e_other, a, b, c, sel, g):
-    """Post-exchange Kogge-Stone level: open (d, e) with the peer's halves,
-    Beaver-AND, then g' = g ^ z[:w] and p' = z[w:].  d_other and e_other
-    may be views into the received round buffer (any party stride)."""
-    if _on_cpu(g):
-        return ref.ks_combine(d, d_other, e, e_other, a, b, c, sel, g)
-    name = "ks_combine"
-    _check(name, [d, e, a, b, c, sel, g], torch.int32)
-    _check(name, [d_other, e_other], torch.int32, contiguous=False)
+def _level_check(name: str, g, halves, triples, sel) -> None:
+    """Shapes of a dense level's operands: g (P, w, W); every half and
+    triple member (P, 2w, W); sel (P,)."""
     n_parties, w, words = g.shape
     full = (n_parties, 2 * w, words)
-    for t in (d, d_other, e, e_other, a, b, c):
+    for t in (*halves, *triples):
         if tuple(t.shape) != full:
             raise ValueError(f"{name}: expected {full}, got {tuple(t.shape)}")
     if sel.shape != (n_parties,):
         raise ValueError(f"{name}: sel must be ({n_parties},)")
+
+
+def ks_combine(d, d_other, e, e_other, a, b, c, sel, g, need_p: bool = True):
+    """Post-exchange Kogge-Stone level: open (d, e) with the peer's halves,
+    Beaver-AND, then g' = g ^ z[:w] and p' = z[w:].  d, e, d_other and
+    e_other may be views with any party stride (halves of the send buffer,
+    of the received round buffer).  Returns (g', p'); with ``need_p``
+    False, (g', None), and the kernel reads only the first w rows."""
+    if _on_cpu(g):
+        g_out, p_out = ref.ks_combine(d, d_other, e, e_other, a, b, c, sel, g)
+        return g_out, p_out if need_p else None
+    name = "ks_combine"
+    _check(name, [a, b, c, sel, g], torch.int32)
+    _check(name, [d, d_other, e, e_other], torch.int32, contiguous=False)
+    _level_check(name, g, (d, d_other, e, e_other), (a, b, c), sel)
+    n_parties, w, words = g.shape
     g_out = torch.empty_like(g)
-    p_out = torch.empty_like(g)
+    p_out = torch.empty_like(g) if need_p else None
     if g.numel():
-        _launch("hb_ks_combine", d.data_ptr(), d_other.data_ptr(),
-                _party_rows(name, d_other), e.data_ptr(), e_other.data_ptr(),
+        _launch("hb_ks_combine", d.data_ptr(), _party_rows(name, d),
+                d_other.data_ptr(), _party_rows(name, d_other), e.data_ptr(),
+                _party_rows(name, e), e_other.data_ptr(),
                 _party_rows(name, e_other), a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), sel.data_ptr(), g.data_ptr(), g_out.data_ptr(),
-                p_out.data_ptr(), n_parties, w, words)
+                None if p_out is None else p_out.data_ptr(), n_parties, w, words)
         ks_combine.launches += 1
     return g_out, p_out
+
+
+def ks_step(sent, d_other, e_other, a, b, c, sel, g, a_next, b_next,
+            shift: int):
+    """A dense Kogge-Stone level's combine fused with the next level's
+    mask: ``ks_combine`` of this level's sent (d, e) (``sent``, the
+    (P, 2, 2w, W) payload the adder yielded), the peer's halves (views of
+    the received round buffer, any party stride) and its triple (a, b,
+    c), then ``ks_mask`` of the next level (triple a_next, b_next; plane
+    ``shift``) on (g', p').  g (P, w, W) is updated in place to g'; p'
+    is not kept.  Returns (g, send): send is a new (P, 2, 2w, W) buffer
+    holding the next level's (d', e'), the payload of its exchange."""
+    if _on_cpu(g):
+        return ref.ks_step(sent, d_other, e_other, a, b, c, sel, g, a_next,
+                           b_next, shift)
+    name = "ks_step"
+    _check(name, [sent, a, b, c, sel, g, a_next, b_next], torch.int32)
+    _check(name, [d_other, e_other], torch.int32, contiguous=False)
+    n_parties, w, words = g.shape
+    if sent.shape != (n_parties, 2, 2 * w, words):
+        raise ValueError(f"{name}: sent must be ({n_parties}, 2, {2 * w}, "
+                         f"{words}), got {tuple(sent.shape)}")
+    _level_check(name, g, (d_other, e_other), (a, b, c, a_next, b_next), sel)
+    if not 1 <= w <= 64 or shift < 1:
+        raise ValueError(f"{name}: w = {w} outside 1..64 or shift {shift} < 1")
+    send = torch.empty_like(sent)
+    if g.numel():
+        _launch("hb_ks_step", sent.data_ptr(), d_other.data_ptr(),
+                _party_rows(name, d_other), e_other.data_ptr(),
+                _party_rows(name, e_other), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), sel.data_ptr(), g.data_ptr(), a_next.data_ptr(),
+                b_next.data_ptr(), send.data_ptr(), n_parties, w, words,
+                int(shift))
+        ks_step.launches += 1
+    return g, send
 
 
 def ks_level(g, p, z, first: int, step: int):
@@ -294,8 +348,8 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-KERNELS = (beaver_and, ks_mask, ks_combine, ks_level, ring_matmul, pack,
-           pack_ring, unpack)
+KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, ring_matmul,
+           pack, pack_ring, unpack)
 for _k in KERNELS:
     _k.launches = 0
 

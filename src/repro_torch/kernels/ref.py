@@ -49,6 +49,19 @@ def ks_combine(d, d_other, e, e_other, a, b, c, sel, g):
     return g ^ z[..., :w, :], z[..., w:, :]
 
 
+def ks_step(sent, d_other, e_other, a, b, c, sel, g, a_next, b_next,
+            shift: int):
+    """``ks_combine`` of one dense level (its sent (d, e) stacked in
+    ``sent``, (P, 2, 2w, W)), then ``ks_mask`` of the next (a_next,
+    b_next, plane ``shift``), stacked as the next send buffer; g is
+    updated in place to g'.  Returns (g, send)."""
+    g_new, p_new = ks_combine(sent[:, 0], d_other, sent[:, 1], e_other, a, b, c,
+                              sel, g)
+    d, e = ks_mask(g_new, p_new, a_next, b_next, shift)
+    g.copy_(g_new)
+    return g, torch.stack([d, e], dim=1)
+
+
 def ks_level(g, p, z, first: int, step: int):
     """Cone-adder level combine, in place: with n = z.shape[-2] // 2 and the
     level's planes first, first + step, ..., g[rows] ^= z[:n] and

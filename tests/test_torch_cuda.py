@@ -34,9 +34,8 @@ def test_cuda_kernels_equal_plain_versions():
         a2, b2, c2, d2, e2 = (words(2, 2 * w, n_words) for _ in range(5))
         opened = words(2, 2, 2 * w, n_words)
         for shift in (s for s in (1, 2, 32) if s < w):   # level shifts < w
-            for u, v in zip(ops.ks_mask(d, e, a2, b2, shift),
-                            tref.ks_mask(d, e, a2, b2, shift)):
-                assert torch.equal(u, v)
+            assert torch.equal(ops.ks_mask(d, e, a2, b2, shift),
+                               torch.stack(tref.ks_mask(d, e, a2, b2, shift), dim=1))
         args = (d2, opened[:, 0], e2, opened[:, 1], a2, b2, c2, sel, d)
         for u, v in zip(ops.ks_combine(*args), tref.ks_combine(*args)):
             assert torch.equal(u, v)
@@ -48,7 +47,7 @@ def test_cuda_kernels_equal_plain_versions():
         assert torch.equal(ops.ring_matmul(x, wt), tref.ring_matmul(x, wt))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"beaver_and": 3, "ks_mask": 5,
-                                   "ks_combine": 3, "ks_level": 0,
+                                   "ks_combine": 3, "ks_step": 0, "ks_level": 0,
                                    "ring_matmul": 3, "pack": 0, "pack_ring": 0,
                                    "unpack": 0}
 
@@ -167,6 +166,96 @@ def test_cuda_unpack_shapes_and_merge_routes():
         assert ops.launch_counts()["unpack"] == 0
         bits = beaver._concat(bundles, [n] * 4, w, cone, beaver._cat_bin_bits)
         assert ops.launch_counts()["pack"] > 0
-        for a, b in zip(chip_smoke.relu_tensors(words),
-                        chip_smoke.relu_tensors(bits)):
+        for a, b in zip(beaver.relu_tensors(words), beaver.relu_tensors(bits)):
             assert torch.equal(a, b), (n, w, cone)
+
+
+@pytest.mark.cuda
+def test_cuda_ks_step_and_adder_ends_equal_plain_versions():
+    """The fused level step against its plain version at w = 2, 8, 64, W =
+    1, 77, 1024, 8192 and every level shift below w, with the peer's halves
+    as strided views of a received round buffer: one payload of three
+    (16-byte aligned, the vector path) and, at W = 1024, one starting a
+    word past alignment (the scalar path).  g is updated in place.  The
+    adder's two ends too: ks_mask's send buffer, ks_combine without p.
+    One launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(4)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32).cuda()
+
+    sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
+    ops.reset_launches()
+    calls = 0
+    for w in (2, 8, 64):
+        for n_words in (1, 77, 1024, 8192):
+            size = 2 * 2 * w * n_words
+            received = [words(2, 3, 2, 2 * w, n_words)[:, 1]]
+            if n_words == 1024:
+                flat = words(2, size + 1)
+                received.append(flat[:, 1:].reshape(2, 2, 2 * w, n_words))
+            sent = words(2, 2, 2 * w, n_words)
+            a, b, c, a2, b2 = (words(2, 2 * w, n_words) for _ in range(5))
+            g = words(2, w, n_words)
+            for opened in received:
+                for shift in (1 << s for s in range(6) if 1 << s < w):
+                    args = (sent, opened[:, 0], opened[:, 1], a, b, c, sel)
+                    g_k, send_k = ops.ks_step(*args, g.clone(), a2, b2, shift)
+                    g_p, send_p = tref.ks_step(*args, g.clone(), a2, b2, shift)
+                    assert torch.equal(g_k, g_p) and torch.equal(send_k, send_p), \
+                        (w, n_words, shift, opened.stride(0))
+                    calls += 1
+                halves = (sent[:, 0], opened[:, 0], sent[:, 1], opened[:, 1],
+                          a, b, c, sel, g)
+                g_only, none = ops.ks_combine(*halves, need_p=False)
+                assert none is None
+                assert torch.equal(g_only, tref.ks_combine(*halves)[0])
+            p = words(2, w, n_words)
+            assert torch.equal(ops.ks_mask(g, p, a2, b2, 1),
+                               torch.stack(tref.ks_mask(g, p, a2, b2, 1), dim=1))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["ks_step"], counts["ks_mask"], counts["ks_combine"]) == \
+        (calls, 12, 15)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_relu_and_offline_pool_equal_cpu():
+    """One dense relu at (64, 0) and one at (21, 13) (4096 and 77
+    elements) on the card equal the same call on the CPU bit for bit,
+    launching ks_mask and ks_combine once and ks_step once per level
+    between; an EagerTTP pool (2 requests x 2 streams, dense and cone)
+    built on the card equals one built on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import beaver, comm, gmw, prng
+
+    for (k, m), n, steps in (((64, 0), 4096, 5), ((21, 13), 77, 2)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(5)
+            x = torch.randint(-2 ** 63, 2 ** 63 - 1, (2, n), generator=gen,
+                              dtype=torch.int64).to(dev)
+            tri = beaver.gen_relu_triples(prng.PRNGKey(6, dev), n, k - m)
+            ops.reset_launches()
+            outs[dev] = gmw.relu(prng.PRNGKey(7, dev), x, tri, comm.SimComm(),
+                                 k=k, m=m)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert (counts["ks_mask"], counts["ks_step"], counts["ks_combine"]) == \
+            (1, steps, 1)
+        assert torch.equal(outs["cuda"].cpu(), outs["cpu"])
+    specs = [(4096, 8), (77, 0), (0, 8), (1000, 64)]
+    for cone in (False, True):
+        pools = [beaver.EagerTTP(prng.PRNGKey(8, dev), specs, cone=cone,
+                                 requests=2, streams=2) for dev in ("cpu", "cuda")]
+        assert pools[0].device_bytes() == pools[1].device_bytes() > 0
+        for _ in range(2 * 2 * len(specs)):
+            want, got = (p.relu_triples(0, 0) for p in pools)
+            assert (want is None) == (got is None)
+            if got is not None:
+                for u, v in zip(beaver.relu_tensors(got), beaver.relu_tensors(want)):
+                    assert u.is_cuda and torch.equal(u.cpu(), v)

@@ -250,6 +250,84 @@ def test_single_round_drivers_bit_identical():
           tgmw.drelu(prng.PRNGKey(4, "cpu"), ta, tt, tcomm.SimComm(), k=21, m=13))
 
 
+def _same_pool(jpool, tpool):
+    assert len(jpool) == len(tpool)
+    for jb, tb in zip(jpool, tpool):
+        assert (jb is None) == (tb is None)
+        if tb is not None:
+            _same_triples(jb, tb)
+
+
+# a dense and a cone triple of the sizes above, a culled and an empty call
+SPECS = [(N, 8), (N, 0), (0, 8), (N, 64)]
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["dense", "cone"])
+def test_gen_plan_triples_and_eager_ttp_bit_identical(cone):
+    """``gen_plan_triples`` (one key split per spec, None for width-0 and
+    empty specs) and ``EagerTTP(requests=2, streams=2)`` (call-major /
+    stream-minor) give the reference's bundles bit for bit."""
+    _same_pool(jbeaver.gen_plan_triples(jax.random.PRNGKey(11), SPECS, cone=cone),
+               tbeaver.gen_plan_triples(prng.PRNGKey(11, "cpu"), SPECS, cone=cone))
+    jttp = jbeaver.EagerTTP(jax.random.PRNGKey(12), SPECS[:2], cone=cone,
+                            requests=2, streams=2)
+    tttp = tbeaver.EagerTTP(prng.PRNGKey(12, "cpu"), SPECS[:2], cone=cone,
+                            requests=2, streams=2)
+    assert isinstance(tttp, tbeaver.TripleProvider)
+    pops = [(n, w) for n, w in SPECS[:2] for _ in range(2)] * 2
+    _same_pool([jttp.relu_triples(n, w, cone=cone) for n, w in pops],
+               [tttp.relu_triples(n, w, cone=cone) for n, w in pops])
+    with pytest.raises(RuntimeError, match="exhausted"):
+        tttp.relu_triples(N, 8, cone=cone)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["dense", "cone"])
+def test_streaming_ttp_bit_identical(cone):
+    """``StreamingTTP`` draws each bundle from its own key stream, as the
+    reference; culled and empty calls draw nothing; a rollback to a
+    checkpoint draws the same bundle again."""
+    jttp = jbeaver.StreamingTTP(jax.random.PRNGKey(13))
+    tttp = tbeaver.StreamingTTP(prng.PRNGKey(13, "cpu"))
+    _same_pool([jttp.relu_triples(n, w, cone=cone) for n, w in SPECS],
+               [tttp.relu_triples(n, w, cone=cone) for n, w in SPECS])
+    token = tttp.checkpoint()
+    first = tttp.relu_triples(N, 8, cone=cone)
+    tttp.rollback(token)
+    again = tttp.relu_triples(N, 8, cone=cone)
+    want = jttp.relu_triples(N, 8, cone=cone)
+    _same_triples(want, first)
+    _same_triples(want, again)
+
+
+def test_metered_provider_meters_and_raises():
+    """``MeteredProvider`` counts bundles and DReLU elements as the
+    reference's does (culled and empty calls free), raises
+    ``TripleBudgetExceeded`` past its budget without billing, and rolls
+    back its counters with its base provider's position."""
+    from repro_torch import errors
+    calls = [(N, 8), (N, 0), (0, 8), (N // 2, 64)]
+    jm = jbeaver.MeteredProvider(jbeaver.InlineTTP(), budget_elements=N + N // 2)
+    tm = tbeaver.MeteredProvider(tbeaver.InlineTTP(), budget_elements=N + N // 2)
+    for n, w in calls:
+        assert jm.relu_triples(n, w) is None and tm.relu_triples(n, w) is None
+    assert (tm.consumed_bundles, tm.consumed_elements, tm.remaining_elements) == \
+        (jm.consumed_bundles, jm.consumed_elements, jm.remaining_elements) == \
+        (2, N + N // 2, 0)
+    with pytest.raises(errors.TripleBudgetExceeded):
+        tm.relu_triples(1, 8)
+    assert tm.consumed_elements == N + N // 2
+    pool = tbeaver.TriplePool(
+        tbeaver.gen_plan_triples(prng.PRNGKey(14, "cpu"), [(8, 4)] * 2))
+    metered = tbeaver.MeteredProvider(pool)
+    assert metered.remaining_elements is None
+    token = metered.checkpoint()
+    first = metered.relu_triples(8, 4)
+    metered.rollback(token)
+    assert metered.relu_triples(8, 4) is first
+    assert (metered.consumed_bundles, metered.consumed_elements, pool.consumed) == \
+        (1, 8, 1)
+
+
 def test_triple_pool_order_and_exhaustion():
     from repro_torch import errors
     bundles = [tbeaver.gen_relu_triples(prng.PRNGKey(i, "cpu"), 8, 4) for i in range(2)]

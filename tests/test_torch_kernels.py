@@ -84,6 +84,42 @@ def test_ks_combine_plain_vs_ref_and_pallas(w):
         np.testing.assert_array_equal(p_t.numpy(), _i32(want[1]))
 
 
+@pytest.mark.parametrize("w,shift", [(2, 1), (8, 1), (8, 2), (8, 4)]
+                         + [(64, 1 << s) for s in range(6)])
+def test_ks_step_plain_vs_ref(w, shift):
+    """The fused level step's plain version equals the reference's
+    ``ks_combine`` of one level, then ``ks_mask`` of the next at ``shift``,
+    then the stack of (d', e'), with the peer's halves as views of a
+    received round buffer (party stride 3 x (2, 2w, W)); g is updated in
+    place.  Also the adder's two ends: ``ks_mask`` as the stacked send
+    buffer and ``ks_combine`` without p."""
+    rng = np.random.default_rng(10)
+    sent = _words(rng, 2, 2, 2 * w, 40)
+    buf = _words(rng, 2, 3, 2, 2 * w, 40)          # three payloads received
+    received, recv_t = buf[:, 1], _t(buf)[:, 1]
+    assert recv_t.stride(0) == 3 * 2 * 2 * w * 40
+    a, b, c, a2, b2 = (_words(rng, 2, 2 * w, 40) for _ in range(5))
+    g = _words(rng, 2, w, 40)
+    sel = _sel_full((2, 2 * w, 40))
+    g_j, p_j = jref.ks_combine(*(jnp.asarray(x) for x in (
+        sent[:, 0], received[:, 0], sent[:, 1], received[:, 1], a, b, c, sel, g)))
+    d_j, e_j = jref.ks_mask(g_j, p_j, jnp.asarray(a2), jnp.asarray(b2), shift)
+    g_t = _t(g.copy())
+    g_out, send = tref.ks_step(_t(sent), recv_t[:, 0], recv_t[:, 1], _t(a), _t(b),
+                               _t(c), _t(SEL), g_t, _t(a2), _t(b2), shift)
+    assert g_out is g_t
+    np.testing.assert_array_equal(g_out.numpy(), _i32(g_j))
+    np.testing.assert_array_equal(send.numpy(), _i32(jnp.stack([d_j, e_j], axis=1)))
+    send_m = ops.ks_mask(_t(g), _t(g), _t(a2), _t(b2), shift)
+    d_m, e_m = jref.ks_mask(*(jnp.asarray(x) for x in (g, g, a2, b2)), shift)
+    np.testing.assert_array_equal(send_m.numpy(), _i32(jnp.stack([d_m, e_m], axis=1)))
+    g_only, none = ops.ks_combine(_t(sent)[:, 0], recv_t[:, 0], _t(sent)[:, 1],
+                                  recv_t[:, 1], _t(a), _t(b), _t(c), _t(SEL), _t(g),
+                                  need_p=False)
+    assert none is None
+    np.testing.assert_array_equal(g_only.numpy(), _i32(g_j))
+
+
 def test_ks_level_plain_vs_ref_and_pallas():
     """In place on (P, planes, W) g and p at the strided rows 1, 3, ..., 15
     (a cone level's layout; the Pallas kernel takes rows in blocks of 8),
@@ -209,11 +245,16 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert torch.equal(ops.ring_matmul(x, w), tref.ring_matmul(x, w))
     g = _t(_words(rng, 2, 4, 3))
     a = _t(_words(rng, 2, 8, 3))
-    assert all(torch.equal(u, v) for u, v in zip(ops.ks_mask(g, g, a, a, 2),
-                                                  tref.ks_mask(g, g, a, a, 2)))
+    assert torch.equal(ops.ks_mask(g, g, a, a, 2),
+                       torch.stack(tref.ks_mask(g, g, a, a, 2), dim=1))
+    sent, opened = _t(_words(rng, 2, 2, 8, 3)), _t(_words(rng, 2, 2, 8, 3))
+    args = (sent, opened[:, 0], opened[:, 1], a, a, a, _t(SEL))
+    want = tref.ks_step(*args, g.clone(), a, a, 2)
+    assert all(torch.equal(u, v)
+               for u, v in zip(ops.ks_step(*args, g.clone(), a, a, 2), want))
     assert ops.launch_counts() == {name: 0 for name in (
-        "beaver_and", "ks_mask", "ks_combine", "ks_level", "ring_matmul", "pack",
-        "pack_ring", "unpack")}
+        "beaver_and", "ks_mask", "ks_combine", "ks_step", "ks_level",
+        "ring_matmul", "pack", "pack_ring", "unpack")}
 
 
 def _meta(dtype, *shape):
@@ -228,6 +269,10 @@ _OFF_CPU_CALLS = {
                                    _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4), 1),
     "ks_combine": lambda: ops.ks_combine(*(_meta(_I32, 2, 2, 4) for _ in range(7)),
                                          _meta(_I32, 2), _meta(_I32, 2, 1, 4)),
+    "ks_step": lambda: ops.ks_step(_meta(_I32, 2, 2, 2, 4),
+                                   *(_meta(_I32, 2, 2, 4) for _ in range(5)),
+                                   _meta(_I32, 2), _meta(_I32, 2, 1, 4),
+                                   _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4), 2),
     "ks_level": lambda: ops.ks_level(_meta(_I32, 2, 3, 4), _meta(_I32, 2, 3, 4),
                                      _meta(_I32, 2, 2, 4), 0, 1),
     "ring_matmul": lambda: ops.ring_matmul(_meta(_I64, 2, 3), _meta(_I32, 3, 2)),

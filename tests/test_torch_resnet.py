@@ -164,6 +164,45 @@ def test_private_inference_cone_bit_identical(models):
     _private_inference(models, reduced=True, cone=True)
 
 
+@pytest.mark.parametrize("reduced,cone", [(False, False), (True, True)],
+                         ids=["exact", "reduced-cone"])
+def test_offline_session_bit_identical(models, reduced, cone):
+    """``Session.offline``: the pool of 2 requests x 2 sibling streams
+    (call-major / stream-minor) made up front from one TTP key; both
+    calls' output shares equal the reference's through its own
+    ``Session.offline`` with the same keys, rounds and bytes equal the
+    schedule, and a third call finds the pool exhausted."""
+    from repro_torch import errors
+    jp, tp = models
+    jplan = jres.trace(jp, JSMOKE, 1, HW, cone=cone)
+    tplan = tres.trace(tp, TSMOKE, 1, HW, cone=cone)
+    if reduced:
+        jplan, tplan = _reduced(japi, jplan), _reduced(tapi, tplan)
+    jcc, tcc = jcomm.CoalescingComm(), tcomm.CoalescingComm()
+    js = japi.Session(key=5, comm=jcc).offline(jax.random.PRNGKey(9), jplan,
+                                                requests=2, streams=2)
+    ts = tapi.Session(key=5, comm=tcc, device="cpu").offline(
+        prng.PRNGKey(9, "cpu"), tplan, requests=2, streams=2)
+    assert ts.provider.device_bytes() > 0
+    jm = japi.compile(_jafn, jp, JSMOKE, jplan, js)
+    tm = tapi.compile(_tafn, tp, TSMOKE, tplan, ts)
+    rng = np.random.default_rng(6)
+    xs = [rng.uniform(-1, 1, (1, 3, HW, HW)).astype(np.float32) for _ in range(2)]
+    jX = [jm.encrypt(jax.random.PRNGKey(20 + i), x) for i, x in enumerate(xs)]
+    tX = [tmpc.MPCTensor(tring.from_limbs(np.asarray(X.data.lo),
+                                          np.asarray(X.data.hi), "cpu"))
+          for X in jX]
+    for _ in range(2):
+        for jo, to in zip(jm(jX), tm(tX)):
+            lo, hi = tring.to_limbs(to.data)
+            np.testing.assert_array_equal(lo, np.asarray(jo.data.lo))
+            np.testing.assert_array_equal(hi, np.asarray(jo.data.hi))
+    sched = tplan.schedule(streams=2)
+    assert (tcc.n_rounds, tcc.bytes_tx) == (2 * sched.n_rounds, 2 * sched.bytes_tx)
+    with pytest.raises(errors.TriplePoolExhausted):
+        tm(tX)
+
+
 def test_encrypt_matches_reference_shares(models):
     """The port's own input sharing equals the reference's for one key."""
     jp, tp = models

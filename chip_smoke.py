@@ -19,7 +19,11 @@ Phases (any failure raises, and the script exits non-zero):
 3. kernels: call each kernel's wrapper on CUDA tensors at the shapes the
    main path gives it (the stem's ReLU, 4 requests merged), require it to
    equal its plain PyTorch version exactly, and time both with CUDA
-   events (median over trials); ring_matmul at all 12 (M, K, N) the main
+   events (median over trials); beaver_and in both forms (plain, and
+   opening the exchanged (d, e) itself, as the dense adder's initial AND
+   runs it); cone_step at the stem's initial round and first level and
+   at w = 8's last level (the sign plane), each beside its bound
+   (``cone_step_bytes``); ring_matmul at all 12 (M, K, N) the main
    path gives it, with full-range int32 weights, and its sum per main-path
    call (launches x ms) beside the card's bound; read the ring_matmul
    kernel's tensor-core (IMMA) and IMAD counts from its SASS and its
@@ -38,8 +42,9 @@ Phases (any failure raises, and the script exits non-zero):
    ``ONLINE_CALLS`` timed calls (median, min, max).  Launch counters are
    zeroed just before each call and read just after; each call must
    launch exactly the kernels of its path (``PATH_KERNELS``), unpack once
-   per ReLU (the sign plane) and the dense adder's kernels as often as
-   its levels say (``adder_launches``).  Measured fused rounds and bytes
+   per ReLU (the sign plane) and the adders' kernels as often as their
+   levels say (``adder_launches``: the cone adder one cone_step per
+   round).  Measured fused rounds and bytes
    must equal ``plan.schedule(streams=4)``; the exact plans' revealed
    logits must match the plaintext forward within the stated tolerance.
    One more exact call runs under torch.profiler: the whole online call's
@@ -98,13 +103,15 @@ SIGN_PLANES = tuple(sorted({STREAMS * n for n, _ in RELU_GROUPS}, reverse=True))
 RAGGED_N = 8209
 # the kernels each run must launch, and no others: pack_ring and unpack
 # (the sign plane) on every ReLU, ring_matmul on every conv and fc; the
-# dense adder runs on beaver_and, ks_mask (its first level), ks_step (one
-# per level after the first) and ks_combine (its last level), the cone
-# adder on beaver_and and ks_level.  Every ResNet-18 group's element count is a
-# multiple of 32, so the 4 streams' triples merge by word concatenation;
-# the ragged-merge path's are not, and its merges unpack and pack.
-_RELU = {"beaver_and", "pack_ring", "unpack"}
-_DENSE, _CONE = {"ks_mask", "ks_step", "ks_combine"}, {"ks_level"}
+# dense adder runs on beaver_and (its initial AND), ks_mask (its first
+# level), ks_step (one per level after the first) and ks_combine (its last
+# level), the cone adder on cone_step alone (one per round).  Every
+# ResNet-18 group's element count is a multiple of 32, so the 4 streams'
+# triples merge by word concatenation; the ragged-merge path's are not,
+# and its merges unpack and pack.
+_RELU = {"pack_ring", "unpack"}
+_DENSE = {"beaver_and", "ks_mask", "ks_step", "ks_combine"}
+_CONE = {"cone_step"}
 PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "reduced": _RELU | {"ring_matmul"} | _DENSE,
                 "exact-cone": _RELU | {"ring_matmul"} | _CONE,
@@ -347,20 +354,59 @@ def sign_plane_launches(plan: str) -> dict:
 
 
 def adder_launches(plan: str) -> dict:
-    """The dense adder's launches per main-path call: per ReLU of width
-    w > 1 with L = ceil(log2 w) levels, ks_mask and ks_combine once and
-    ks_step L - 1 times; none on the cone plans."""
+    """The adders' launches per main-path call, per ReLU of width w > 1:
+    dense, with L = ceil(log2 w) levels, beaver_and (the initial AND),
+    ks_mask and ks_combine once and ks_step L - 1 times; cone, one
+    cone_step per round (the initial AND's and each non-empty cone
+    level's) and no beaver_and or ks_level."""
+    from repro_torch.core import gmw
     from repro_torch.core.schedule import n_levels
 
-    out = {"ks_mask": 0, "ks_step": 0, "ks_combine": 0}
-    if plan.endswith("cone"):
-        return out
+    out = dict.fromkeys(("beaver_and", "ks_mask", "ks_step", "ks_combine",
+                         "ks_level", "cone_step"), 0)
     for (_, relus), w in zip(RELU_GROUPS, PLAN_WIDTHS[plan]):
-        if w > 1:
-            out["ks_mask"] += relus
-            out["ks_combine"] += relus
-            out["ks_step"] += relus * (n_levels(w) - 1)
+        if w < 2:
+            continue
+        if plan.endswith("cone"):
+            out["cone_step"] += relus * (1 + len(gmw._cone_levels(w)))
+            continue
+        out["beaver_and"] += relus
+        out["ks_mask"] += relus
+        out["ks_combine"] += relus
+        out["ks_step"] += relus * (n_levels(w) - 1)
     return out
+
+
+def cone_step_rows(w: int, r: int) -> int:
+    """Rows of W words per party that the cone adder's round-r cone_step
+    (r = 0: after the initial AND's exchange, r = i: after cone level
+    i's) must read or write once: the sent and the received (d, e) and the
+    round's triple (7 per AND row); g's updated rows (read and written
+    after a level, written after the initial AND) and p's (written); the
+    rows the next payload reads that this round did not touch, a' and b'
+    read and (d', e') written (2n' rows each), or, after the last round,
+    p[w-1] and the sign plane."""
+    from repro_torch.core import gmw
+
+    levels = gmw._cone_levels(w)
+    if r == 0:
+        and_rows, g_read, upd, p_written = w - 1, set(), set(range(w - 1)), set()
+    else:
+        _, first, step, n = levels[r - 1]
+        and_rows, upd = 2 * n, set(range(first, first + step * n, step))
+        g_read, p_written = upd, upd
+    moved = 7 * and_rows + len(g_read) + len(upd) + len(p_written)
+    if r < len(levels):
+        lvl, first, step, n = levels[r]
+        nxt = set(range(first, first + step * n, step))
+        src = {i - (1 << lvl) for i in nxt}
+        return moved + len((nxt | src) - p_written) + len(src - upd) + 8 * n
+    return moved + (w - 1 not in p_written) + (w - 2 not in upd) + 1
+
+
+def cone_step_bytes(w: int, r: int, n_words: int, parties: int = 2) -> int:
+    """``cone_step_rows`` words per (party, word), and the (P,) selector."""
+    return 4 * parties * (n_words * cone_step_rows(w, r) + 1)
 
 
 def sign_plane_sums(sign_rows) -> dict:
@@ -380,6 +426,29 @@ def sign_plane_sums(sign_rows) -> dict:
               f"ms from L2, {out[plan]['eager_call_ms']:.4f} ms eager; card "
               f"bound {out[plan]['bound_ms']:.4f} ms", flush=True)
     return out
+
+
+def cone_step_inputs(words, w: int, r: int, n_words: int, parties: int = 2):
+    """Random inputs of the cone adder's round-r cone_step at width w (r =
+    0: after the initial AND's exchange; r = i: after cone level i's), from
+    ``words(*shape)``: ((sent, d_other, e_other, a, b, c), level, nxt),
+    the peer's halves as views of a received round buffer and ``nxt`` the
+    next level's ((first, step, shift), a_next, b_next), or () after the
+    last round."""
+    from repro_torch.core import gmw
+
+    levels = gmw._cone_levels(w)
+    rows = w - 1 if r == 0 else 2 * levels[r - 1][3]
+    level = None if r == 0 else levels[r - 1][1:3]
+    nxt = ()
+    if r < len(levels):
+        lvl, first, step, n = levels[r]
+        nxt = ((first, step, 1 << lvl), words(parties, 2 * n, n_words),
+               words(parties, 2 * n, n_words))
+    opened = words(parties, 2, rows, n_words)
+    args = (words(parties, 2, rows, n_words), opened[:, 0], opened[:, 1],
+            *(words(parties, rows, n_words) for _ in range(3)))
+    return args, level, nxt
 
 
 def kernel_phase():
@@ -404,6 +473,16 @@ def kernel_phase():
                lambda: ops.beaver_and(d, e, a, b, c, sel),
                lambda: ref.beaver_and(d, e, a, b, c, sel),
                (6 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words}",
+               into=into)
+        # the opening form, as the dense adder's initial AND runs it: the
+        # sent payload and the peer's halves in the received round buffer
+        sent_ba, recv_ba = words(gen, P, 2, w, n_words), words(gen, P, 2, w, n_words)
+        halves = (sent_ba[:, 0], sent_ba[:, 1], a, b, c, sel, recv_ba[:, 0],
+                  recv_ba[:, 1])
+        record("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:45",
+               lambda: ops.beaver_and(*halves), lambda: ref.beaver_and_open(*halves),
+               (8 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words} opening",
                into=into)
         g, p = words(gen, P, w, n_words), words(gen, P, w, n_words)
         a2, b2 = words(gen, P, 2 * w, n_words), words(gen, P, 2 * w, n_words)
@@ -435,9 +514,10 @@ def kernel_phase():
                                    sel, g4, a3, b3, 2),
                96 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words} shift=2",
                into=into)
-    # the cone adder's combine at the stem's first level, in place on the
-    # adder's (P, w-1, W) g and p planes at rows 2, 4, ..., w-2 (n = 31 of the
-    # exact plan's w = 64; n = 3 of the reduced plan's w = 8).  Its 20 bytes
+    # the cone adder's combine (off the ResNet plans since cone_step took
+    # it in) at the stem's first level, in place on the adder's (P, w-1, W)
+    # g and p planes at rows 2, 4, ..., w-2 (n = 31 of the exact plan's
+    # w = 64; n = 3 of the reduced plan's w = 8).  Its 20 bytes
     # per (party, row, word) are g, z_g, z_p read and g, p written; the plain
     # version does the same in-place update.
     for w, into in ((64, rows), (8, extra)):
@@ -451,6 +531,24 @@ def kernel_phase():
                lambda: ref.ks_level(g2, p2, z, 2, 2),
                20 * P * n * n_words, shape=f"P={P} planes={w - 1} n={n} W={n_words}",
                into=into, path="exact-cone")
+    # the cone adder's fused round step at the stem (w = 64: after the
+    # initial AND, writing level 0's payload; after level 0, writing level
+    # 1's) and after w = 8's last level (n = 1, the sign plane); g and p
+    # are updated in place, so the kernel and the plain version each get
+    # their own copies, and both are compared with the output
+    for w, r, into in ((64, 1, rows), (64, 0, extra), (8, 3, extra)):
+        args, level, nxt = cone_step_inputs(lambda *sh: words(gen, *sh), w, r,
+                                            n_words, P)
+        rows_r = args[0].shape[2]
+        g, p = words(gen, P, w - 1, n_words), words(gen, P, w, n_words)
+        g2, p2 = g.clone(), p.clone()
+        record("cone_step", "src/repro_torch/csrc/gmw_round.cu",
+               "src/repro/kernels/gmw_round.py:45",
+               lambda: (ops.cone_step(*args, sel, g, p, level, *nxt), g, p),
+               lambda: (ref.cone_step(*args, sel, g2, p2, level, *nxt), g2, p2),
+               cone_step_bytes(w, r, n_words, P),
+               shape=f"P={P} w={w} round={r} rows={rows_r} W={n_words}",
+               into=into, path="exact-cone" if w == 64 else "reduced-cone")
     # the A2B input: bits m..k-1 of the stem's merged shares
     x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, n_el), generator=gen,
                       dtype=torch.int64).cuda()

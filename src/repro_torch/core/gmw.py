@@ -15,11 +15,11 @@ per communication round and is sent the peer's payload back:
 coalesce each round into ONE exchange.  Round-local compute runs in the
 CUDA kernels of ``kernels/ops.py``: ``pack_ring`` packs the reduced-ring
 bits straight from the shares, the dense Kogge-Stone adder runs on
-``beaver_and``, ``ks_mask`` (its first level), ``ks_step`` (one launch
-between two exchanges) and ``ks_combine`` (its last level), the
-MSB-cone-pruned adder
-(``cone=True``) on ``beaver_and`` and ``ks_level``, and ``unpack`` opens
-the sign plane.  Shares are bit-identical to the reference for the same
+``beaver_and`` (its initial AND, opening the exchanged (d, e) itself),
+``ks_mask`` (its first level), ``ks_step`` (one launch between two
+exchanges) and ``ks_combine`` (its last level), the MSB-cone-pruned adder
+(``cone=True``) on ``cone_step`` (one launch between two exchanges, the
+last one writing the sign plane), and ``unpack`` opens the sign plane.  Shares are bit-identical to the reference for the same
 keys, triples and inputs.
 """
 from __future__ import annotations
@@ -88,15 +88,24 @@ def _sel_words(comm, template: torch.Tensor) -> torch.Tensor:
 # Secure AND on packed binary shares (one communication round)
 # ---------------------------------------------------------------------------
 
-def _and_open_rounds(x, y, triple: beaver.BinTriple, comm):
-    """Round generator for z = x & y on XOR-shared packed words."""
-    d = x ^ triple.a
-    e = y ^ triple.b
-    opened = yield torch.stack([d, e], dim=1)   # single exchange
-    d_open = d ^ opened[:, 0]
-    e_open = e ^ opened[:, 1]
-    return kops.beaver_and(d_open, e_open, triple.a, triple.b, triple.c,
-                           _sel_words(comm, x))
+def _masked_payload(x, y, a, b) -> torch.Tensor:
+    """The (P, 2, ..., W) payload of a Beaver AND: x ^ a then y ^ b per
+    party, written straight into the send buffer."""
+    send = torch.empty((x.shape[0], 2) + tuple(x.shape[1:]), dtype=x.dtype,
+                       device=x.device)
+    torch.bitwise_xor(x, a, out=send[:, 0])
+    torch.bitwise_xor(y, b, out=send[:, 1])
+    return send
+
+
+def _and_open_rounds(x, y, triple: beaver.BinTriple, comm, sel=None):
+    """Round generator for z = x & y on XOR-shared packed words; the
+    opening form of ``beaver_and`` opens the exchanged (d, e) itself."""
+    send = _masked_payload(x, y, triple.a, triple.b)
+    opened = yield send                         # single exchange
+    return kops.beaver_and(send[:, 0], send[:, 1], triple.a, triple.b, triple.c,
+                           _sel_words(comm, x) if sel is None else sel,
+                           opened[:, 0], opened[:, 1])
 
 
 def and_open(x, y, triple: beaver.BinTriple, comm) -> torch.Tensor:
@@ -116,16 +125,15 @@ def _adder_msb_rounds(xw, yw, triples: beaver.ReluTriples, comm, w: int,
     level's combine fused with this level's mask, g updated in place),
     each as the (P, 2, 2w, W) payload the generator yields; the last
     level's combine keeps only g (``ks_combine`` without p).  Cone: only
-    the backward cone of the carry into bit w-1 (``schedule.cone_sets``);
-    each non-empty level is one AND round and one ``ks_level`` combine."""
+    the backward cone of the carry into bit w-1 (``schedule.cone_sets``),
+    one ``cone_step`` after each exchange (``_cone_rounds``)."""
     p0 = xw ^ yw                      # initial propagate (local)
     if w == 1:
         return p0[..., 0, :]
-    if cone:
-        g = yield from _cone_generate_rounds(xw, yw, p0, triples, comm, w)
-        return p0[..., w - 1, :] ^ g[..., w - 2, :]
-    g = yield from _and_open_rounds(xw, yw, triples.bin_init, comm)
     sel = _sel_words(comm, xw)
+    if cone:
+        return (yield from _cone_rounds(xw, yw, p0, triples, sel, w))
+    g = yield from _and_open_rounds(xw, yw, triples.bin_init, comm, sel)
     n_lv = schedule_lib.n_levels(w)
     levels = triples.bin_levels
     # each level's send buffer is new (the exchange may still hold the last)
@@ -164,27 +172,28 @@ def _cone_levels(w: int):
     return tuple(levels)
 
 
-def _rows(first: int, step: int, n: int) -> slice:
-    return slice(first, first + step * (n - 1) + 1, step)
-
-
-def _cone_generate_rounds(xw, yw, p0, triples: beaver.ReluTriples, comm,
-                          w: int):
-    """The cone adder's prefix generates as dense (P, w-1, W) planes: the
-    reference's per-position dicts become strided slices, updated in place
-    by one ``ks_level`` launch per level.  Planes outside the cone are
-    never read.  Levels whose cone slice is empty run no round."""
-    g = yield from _and_open_rounds(xw[..., :w - 1, :], yw[..., :w - 1, :],
-                                    triples.bin_init, comm)
-    p = p0[..., :w - 1, :].clone(memory_format=torch.contiguous_format)
-    for lvl, first, step, n in _cone_levels(w):
-        p_at = p[..., _rows(first, step, n), :]
-        src = _rows(first - (1 << lvl), step, n)      # 2^level below each
-        rhs = torch.cat([g[..., src, :], p[..., src, :]], dim=-2)
-        z = yield from _and_open_rounds(torch.cat([p_at, p_at], dim=-2), rhs,
-                                        triples.bin_levels[lvl], comm)  # one round
-        kops.ks_level(g, p, z, first, step)
-    return g
+def _cone_rounds(xw, yw, p0, triples: beaver.ReluTriples, sel, w: int):
+    """The cone adder's rounds on dense planes: g (P, w-1, W) prefix
+    generates and p0 (P, w, W) as the prefix propagates, both updated in
+    place; the reference's per-position dicts become strided rows.  The
+    initial AND's payload is built here; after every exchange one
+    ``cone_step`` opens and ANDs the round, updates g and p, and writes the
+    next non-empty level's payload, or, after the last, the sign plane it
+    returns.  Levels whose cone slice is empty run no round; planes outside
+    the cone are never read."""
+    tri, level = triples.bin_init, None
+    send = _masked_payload(xw[..., :w - 1, :], yw[..., :w - 1, :], tri.a, tri.b)
+    g = torch.empty(tri.a.shape, dtype=tri.a.dtype, device=tri.a.device)
+    for lvl, first, step, _ in _cone_levels(w):
+        opened = yield send                                    # one round
+        nxt = triples.bin_levels[lvl]
+        send = kops.cone_step(send, opened[:, 0], opened[:, 1], tri.a, tri.b,
+                              tri.c, sel, g, p0, level, (first, step, 1 << lvl),
+                              nxt.a, nxt.b)
+        tri, level = nxt, (first, step)
+    opened = yield send                                        # the last round
+    return kops.cone_step(send, opened[:, 0], opened[:, 1], tri.a, tri.b, tri.c,
+                          sel, g, p0, level)
 
 
 def adder_msb(xw, yw, triples: beaver.ReluTriples, comm, w: int,

@@ -14,7 +14,8 @@ Each kernel, the reference Pallas kernel it replaces, and its bound on
 the card (design notes in the CUDA sources):
 
 - ``beaver_and``: ``kernels/gmw_round.py:45`` ``beaver_and_pallas``;
-  bytes, 24 per word (5 inputs, 1 output).
+  bytes, 24 per word (5 inputs, 1 output); 32 in the opening form, which
+  reads the sent (d, e) and the peer's halves and opens them itself.
 - ``ks_mask``: ``kernels/gmw_round.py:73`` ``ks_mask_pallas``; bytes, 40
   per (party, plane of w, word), written as the level's send buffer.  The
   dense adder runs it for its first level only.
@@ -26,6 +27,10 @@ the card (design notes in the CUDA sources):
   where the two passes and the stack between them moved 140.
 - ``ks_level``: ``kernels/gmw_round.py:134`` ``ks_level_pallas``; bytes,
   20 per (party, level plane, word), in place on the adder's planes.
+- ``cone_step``: ``beaver_and_pallas`` of one cone round fused with
+  ``ks_level_pallas`` and the next cone level's masking (the reference's
+  lhs/rhs stack, ``core/gmw.py:190-192``); bytes, every word the round
+  must read or write once (``chip_smoke.cone_step_bytes``).
 - ``ring_matmul``: ``kernels/ring_matmul.py:88`` ``ring_matmul_pallas``;
   max(bytes, 8 per x and output value and 4 per weight, over 3.35 TB/s;
   26 int8 digit-plane products, the fewest a byte-digit scheme needs,
@@ -49,13 +54,15 @@ from . import build, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    "hb_beaver_and": ("gmw_round.cu", [_P] * 7 + [_I, _I, _P]),
+    "hb_beaver_and": ("gmw_round.cu", [_P, _I] * 4 + [_P] * 5 + [_I, _I, _P]),
     "hb_ks_mask": ("gmw_round.cu", [_P] * 5 + [_I] * 4 + [_P]),
     "hb_ks_combine": ("gmw_round.cu",
                       [_P, _I] * 4 + [_P] * 7 + [_I] * 3 + [_P]),
     "hb_ks_step": ("gmw_round.cu",
                    [_P, _P, _I, _P, _I] + [_P] * 8 + [_I] * 4 + [_P]),
     "hb_ks_level": ("gmw_round.cu", [_P, _P, _P] + [_I] * 7 + [_P]),
+    "hb_cone_step": ("gmw_round.cu",
+                     [_P, _P, _I, _P, _I] + [_P] * 9 + [_I] * 10 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
     "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
     "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P]),
@@ -111,24 +118,37 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
 
 
-def beaver_and(d_open, e_open, a, b, c, sel):
+def beaver_and(d, e, a, b, c, sel, d_other=None, e_other=None):
     """Local Beaver-AND z = c ^ (d&b) ^ (e&a) ^ (sel&d&e) on (P, ..., W)
-    int32 words of any leading shape; ``sel`` is one word per party."""
-    if _on_cpu(d_open):
-        return ref.beaver_and(d_open, e_open, a, b, c, sel)
-    _check("beaver_and", [d_open, e_open, a, b, c, sel], torch.int32)
-    n_parties = d_open.shape[0]
-    for t in (e_open, a, b, c):
-        if t.shape != d_open.shape:
-            raise ValueError(f"beaver_and: shape {tuple(t.shape)} != "
-                             f"{tuple(d_open.shape)}")
+    int32 words of any leading shape; ``sel`` is one word per party.
+    Plain form: d and e are the opened values, contiguous.  Opening form
+    (``d_other`` and ``e_other`` given): d and e are this party's sent
+    halves and d_other, e_other the peer's, all four views with any party
+    stride; the kernel opens d ^ d_other and e ^ e_other itself."""
+    opening = d_other is not None
+    if (e_other is not None) != opening:
+        raise ValueError("beaver_and: give both of d_other and e_other, or neither")
+    if _on_cpu(d):
+        if opening:
+            return ref.beaver_and_open(d, e, a, b, c, sel, d_other, e_other)
+        return ref.beaver_and(d, e, a, b, c, sel)
+    name = "beaver_and"
+    halves = [d, e] + ([d_other, e_other] if opening else [])
+    _check(name, [a, b, c, sel], torch.int32)
+    _check(name, halves, torch.int32, contiguous=not opening)
+    n_parties = a.shape[0]
+    for t in halves + [b, c]:
+        if t.shape != a.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(a.shape)}")
     if sel.shape != (n_parties,):
-        raise ValueError(f"beaver_and: sel must be ({n_parties},), got "
+        raise ValueError(f"{name}: sel must be ({n_parties},), got "
                          f"{tuple(sel.shape)}")
-    out = torch.empty_like(d_open)
-    per_party = d_open.numel() // n_parties
+    out = torch.empty_like(a)
+    per_party = a.numel() // n_parties if n_parties else 0
     if per_party:
-        _launch("hb_beaver_and", d_open.data_ptr(), e_open.data_ptr(),
+        rows = [(t.data_ptr(), _party_rows(name, t)) for t in halves]
+        peer = rows[2:] if opening else [(None, 0), (None, 0)]
+        _launch("hb_beaver_and", *rows[0], *rows[1], *peer[0], *peer[1],
                 a.data_ptr(), b.data_ptr(), c.data_ptr(), sel.data_ptr(),
                 out.data_ptr(), n_parties, per_party)
         beaver_and.launches += 1
@@ -261,6 +281,88 @@ def ks_level(g, p, z, first: int, step: int):
     return g, p
 
 
+def cone_step(sent, d_other, e_other, a, b, c, sel, g, p, level=None,
+              nxt=None, a_next=None, b_next=None):
+    """The MSB-cone adder's work between two exchanges, in one launch.
+
+    Opens the round's sent (d, e) (``sent``, the (P, 2, R, W) payload the
+    adder yielded) with the peer's halves (views of the received round
+    buffer, any party stride), Beaver-ANDs with the round's triple (a, b,
+    c: (P, R, W)), and updates g (P, w-1, W) and p (P, w, W) in place:
+    with ``level`` None (the initial AND, R = w - 1) g = z; with ``level``
+    = (first, step) (a cone level of n = R // 2 rows first + i step)
+    g[rows] ^= z[:n] and p[rows] = z[n:].  With ``nxt`` = (first', step',
+    shift') of the next non-empty cone level and its triple's a_next,
+    b_next (P, 2n', W), returns its payload (P, 2, 2n', W):
+    d' = [p[rows'], p[rows']] ^ a_next, e' = [g[rows' - shift'],
+    p[rows' - shift']] ^ b_next.  With ``nxt`` None (the last round),
+    returns the sign plane p[w-1] ^ g[w-2], (P, W)."""
+    if _on_cpu(g):
+        return ref.cone_step(sent, d_other, e_other, a, b, c, sel, g, p, level,
+                             nxt, a_next, b_next)
+    name = "cone_step"
+    _check(name, [sent, a, b, c, sel, g, p], torch.int32)
+    _check(name, [d_other, e_other], torch.int32, contiguous=False)
+    if g.ndim != 3 or p.ndim != 3 or sent.ndim != 4:
+        raise ValueError(f"{name}: expected g (P, w-1, W), p (P, w, W) and sent "
+                         f"(P, 2, R, W)")
+    n_parties, planes, n_words = g.shape
+    w = planes + 1
+    rows = sent.shape[2]
+    if p.shape != (n_parties, w, n_words) or not 2 <= w <= 64:
+        raise ValueError(f"{name}: g {tuple(g.shape)} and p {tuple(p.shape)} are "
+                         f"not (P, w-1, W) and (P, w, W) with 2 <= w <= 64")
+    if sent.shape != (n_parties, 2, rows, n_words):
+        raise ValueError(f"{name}: sent must be ({n_parties}, 2, R, {n_words}), "
+                         f"got {tuple(sent.shape)}")
+    for t in (d_other, e_other, a, b, c):
+        if tuple(t.shape) != (n_parties, rows, n_words):
+            raise ValueError(f"{name}: expected {(n_parties, rows, n_words)}, got "
+                             f"{tuple(t.shape)}")
+    if sel.shape != (n_parties,):
+        raise ValueError(f"{name}: sel must be ({n_parties},)")
+    if level is None:
+        first, step = -1, 0
+        if rows != planes:
+            raise ValueError(f"{name}: the initial AND covers {planes} planes, "
+                             f"sent has {rows}")
+    else:
+        first, step = level
+        n = rows // 2
+        if rows % 2 or not n or first < 0 or step < 1 or step & (step - 1) \
+                or first + step * (n - 1) >= planes:
+            raise ValueError(f"{name}: level rows {first}:{step}:x{rows // 2} "
+                             f"outside {planes} planes or step not a power of 2")
+    if nxt is None:
+        n_next, first_next, step_next, shift_next = 0, 0, 0, 0
+        out = torch.empty((n_parties, n_words), dtype=torch.int32, device=g.device)
+    else:
+        first_next, step_next, shift_next = nxt
+        _check(name, [a_next, b_next], torch.int32)
+        n_next = a_next.shape[1] // 2 if a_next.ndim == 3 else 0
+        for t in (a_next, b_next):
+            if tuple(t.shape) != (n_parties, 2 * n_next, n_words) or not n_next:
+                raise ValueError(f"{name}: a_next, b_next must be ({n_parties}, "
+                                 f"2n', {n_words}), got {tuple(t.shape)}")
+        if step_next < 1 or first_next - shift_next < 0 \
+                or first_next + step_next * (n_next - 1) >= planes:
+            raise ValueError(f"{name}: next rows {first_next}:{step_next}:"
+                             f"x{n_next} - {shift_next} outside {planes} planes")
+        out = torch.empty((n_parties, 2, 2 * n_next, n_words), dtype=torch.int32,
+                          device=g.device)
+    if n_words:
+        _launch("hb_cone_step", sent.data_ptr(), d_other.data_ptr(),
+                _party_rows(name, d_other), e_other.data_ptr(),
+                _party_rows(name, e_other), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), sel.data_ptr(), g.data_ptr(), p.data_ptr(),
+                a_next.data_ptr() if nxt is not None else None,
+                b_next.data_ptr() if nxt is not None else None, out.data_ptr(),
+                n_parties, w, n_words, rows, first, step, n_next, first_next,
+                step_next, shift_next)
+        cone_step.launches += 1
+    return out
+
+
 def _packed_shape(name: str, v: torch.Tensor, w: int):
     if v.ndim < 1:
         raise ValueError(f"{name}: expected (..., E) values")
@@ -348,8 +450,8 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, ring_matmul,
-           pack, pack_ring, unpack)
+KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, cone_step,
+           ring_matmul, pack, pack_ring, unpack)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -24,6 +24,12 @@ def beaver_and(d_open, e_open, a, b, c, sel) -> torch.Tensor:
     return c ^ (d_open & b) ^ (e_open & a) ^ (s & d_open & e_open)
 
 
+def beaver_and_open(d, e, a, b, c, sel, d_other, e_other) -> torch.Tensor:
+    """The opening form: open this party's sent (d, e) with the peer's
+    halves, then ``beaver_and``."""
+    return beaver_and(d ^ d_other, e ^ e_other, a, b, c, sel)
+
+
 def _shift_planes(x: torch.Tensor, shift: int) -> torch.Tensor:
     """Plane i of the result is plane i - shift of x; zeros below."""
     if shift == 0:
@@ -62,15 +68,44 @@ def ks_step(sent, d_other, e_other, a, b, c, sel, g, a_next, b_next,
     return g, torch.stack([d, e], dim=1)
 
 
+def _rows(first: int, step: int, n: int) -> slice:
+    return slice(first, first + step * (n - 1) + 1, step)
+
+
 def ks_level(g, p, z, first: int, step: int):
     """Cone-adder level combine, in place: with n = z.shape[-2] // 2 and the
     level's planes first, first + step, ..., g[rows] ^= z[:n] and
     p[rows] = z[n:], the reference's ``(g ^ z_g, z_p)`` at those planes."""
     n = z.shape[-2] // 2
-    rows = slice(first, first + step * (n - 1) + 1, step)
+    rows = _rows(first, step, n)
     g[..., rows, :] ^= z[..., :n, :]
     p[..., rows, :] = z[..., n:, :]
     return g, p
+
+
+def cone_step(sent, d_other, e_other, a, b, c, sel, g, p, level=None,
+              nxt=None, a_next=None, b_next=None):
+    """The cone adder's work between two exchanges: ``beaver_and`` of the
+    round's opened (d, e); then g = z after the initial AND (``level``
+    None), or ``ks_level`` at the level's rows (``level`` = (first,
+    step)); g (P, w-1, W) and p (P, w, W) are updated in place.  Returns
+    the next cone level's payload (``nxt`` = (first', step', shift')), the
+    reference's lhs = [p[rows'], p[rows']] and rhs = [g[rows' - shift'],
+    p[rows' - shift']] masked by a_next and b_next and stacked, or, with
+    ``nxt`` None, the sign plane p[w-1] ^ g[w-2]."""
+    z = beaver_and_open(sent[:, 0], sent[:, 1], a, b, c, sel, d_other, e_other)
+    if level is None:
+        g.copy_(z)
+    else:
+        ks_level(g, p, z, *level)
+    if nxt is None:
+        return p[:, -1] ^ g[:, -1]
+    first, step, shift = nxt
+    n = a_next.shape[-2] // 2
+    rows, src = _rows(first, step, n), _rows(first - shift, step, n)
+    lhs = torch.cat([p[:, rows], p[:, rows]], dim=-2)
+    rhs = torch.cat([g[:, src], p[:, src]], dim=-2)
+    return torch.stack([lhs ^ a_next, rhs ^ b_next], dim=1)
 
 
 def pack(v: torch.Tensor, w: int, shift: int = 0) -> torch.Tensor:

@@ -48,8 +48,8 @@ def test_cuda_kernels_equal_plain_versions():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"beaver_and": 3, "ks_mask": 5,
                                    "ks_combine": 3, "ks_step": 0, "ks_level": 0,
-                                   "ring_matmul": 3, "pack": 0, "pack_ring": 0,
-                                   "unpack": 0}
+                                   "cone_step": 0, "ring_matmul": 3, "pack": 0,
+                                   "pack_ring": 0, "unpack": 0}
 
 
 @pytest.mark.cuda
@@ -259,3 +259,102 @@ def test_cuda_dense_relu_and_offline_pool_equal_cpu():
             if got is not None:
                 for u, v in zip(beaver.relu_tensors(got), beaver.relu_tensors(want)):
                     assert u.is_cuda and torch.equal(u.cpu(), v)
+
+
+def _received(words, rows: int, n_words: int, unaligned: bool):
+    """The peer's (P, 2, rows, W) payload as a view of a received round
+    buffer: one payload of three (party stride 3x, 16-byte aligned where
+    W % 4 == 0), or one starting a word past a (P, 1 + size) buffer
+    (every word form, whatever W)."""
+    if unaligned:
+        flat = words(2, 2 * rows * n_words + 1)
+        return flat[:, 1:].reshape(2, 2, rows, n_words)
+    return words(2, 3, 2, rows, n_words)[:, 1]
+
+
+@pytest.mark.cuda
+def test_cuda_cone_step_and_opening_beaver_and_equal_plain_versions():
+    """cone_step against its plain version at every round of the cone
+    adder (the initial AND to the sign plane) at w = 2, 3, 8, 21, 64 and W
+    = 1, 77, 1024, 8192 (the stem's; W % 4 != 0 takes the word form), with
+    the peer's halves at an aligned and an unaligned party stride (the
+    16-byte and the word form where W % 4 == 0); g and p in place.  The
+    opening beaver_and likewise at the dense adder's initial AND shapes.
+    One launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import gmw
+
+    gen = torch.Generator().manual_seed(6)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32).cuda()
+
+    sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
+    ops.reset_launches()
+    steps = ands = 0
+    for w, n_words in ((2, 77), (3, 1), (8, 1024), (8, 8192), (8, 77),
+                       (21, 1024), (64, 8192), (64, 77)):
+        levels = gmw._cone_levels(w)
+        for unaligned in (False, True):
+            g, p = words(2, w - 1, n_words), words(2, w, n_words)
+            sent = words(2, 2, w - 1, n_words)
+            tri = [words(2, w - 1, n_words) for _ in range(3)]
+            level = None
+            for r in range(len(levels) + 1):
+                rows = sent.shape[2]
+                opened = _received(words, rows, n_words, unaligned)
+                nxt = ()
+                if r < len(levels):
+                    lvl, first, step, n = levels[r]
+                    nxt_tri = [words(2, 2 * n, n_words) for _ in range(3)]
+                    nxt = ((first, step, 1 << lvl), nxt_tri[0], nxt_tri[1])
+                args = (sent, opened[:, 0], opened[:, 1], *tri, sel)
+                g_p, p_p = g.clone(), p.clone()
+                got = ops.cone_step(*args, g, p, level, *nxt)
+                want = tref.cone_step(*args, g_p, p_p, level, *nxt)
+                assert torch.equal(got, want) and torch.equal(g, g_p) and \
+                    torch.equal(p, p_p), (w, n_words, r, unaligned)
+                steps += 1
+                if nxt:
+                    sent, tri, level = got, nxt_tri, (first, step)
+            # the opening beaver_and at the dense adder's initial AND
+            sent_w = words(2, 2, w, n_words)
+            opened = _received(words, w, n_words, unaligned)
+            halves = (sent_w[:, 0], sent_w[:, 1], *(words(2, w, n_words)
+                                                    for _ in range(3)), sel,
+                      opened[:, 0], opened[:, 1])
+            assert torch.equal(ops.beaver_and(*halves), tref.beaver_and_open(*halves)), \
+                (w, n_words, unaligned)
+            ands += 1
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["cone_step"], counts["beaver_and"]) == (steps, ands)
+
+
+@pytest.mark.cuda
+def test_cuda_cone_relu_equals_cpu():
+    """The exact-cone and the reduced-cone ReLU (w = 64 over 4096 elements,
+    w = 8 over 77) on the card equal the same call on the CPU bit for bit,
+    launching one cone_step per round of the adder and no beaver_and or
+    ks_level."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import beaver, comm, gmw, prng
+
+    for (k, m), n in (((64, 0), 4096), ((21, 13), 77)):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            gen = torch.Generator().manual_seed(7)
+            x = torch.randint(-2 ** 63, 2 ** 63 - 1, (2, n), generator=gen,
+                              dtype=torch.int64).to(dev)
+            tri = beaver.gen_relu_triples(prng.PRNGKey(8, dev), n, k - m, cone=True)
+            ops.reset_launches()
+            outs[dev] = gmw.relu(prng.PRNGKey(9, dev), x, tri, comm.SimComm(),
+                                 k=k, m=m, cone=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert (counts["cone_step"], counts["beaver_and"], counts["ks_level"]) == \
+            (1 + len(gmw._cone_levels(k - m)), 0, 0)
+        assert torch.equal(outs["cuda"].cpu(), outs["cpu"])

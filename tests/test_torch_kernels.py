@@ -9,7 +9,7 @@ import torch
 
 from repro.core import ring as jring, ring_linalg as jlinalg, shares as jshares
 from repro.kernels import bitpack, gmw_round, ref as jref, ring_matmul as jring_matmul
-from repro_torch.core import ring as tring, shares as tshares
+from repro_torch.core import gmw as tgmw, ring as tring, shares as tshares
 from repro_torch.kernels import ops, ref as tref
 
 SEL = np.array([0xFFFFFFFF, 0], np.uint32)     # all-ones on party 0
@@ -52,6 +52,28 @@ def test_beaver_and_plain_vs_pallas_2d():
             *(jnp.asarray(x[party]) for x in (d, e, a, b, c)), jnp.asarray(sel),
             interpret=True)
         np.testing.assert_array_equal(got[party].numpy(), _i32(want))
+
+
+@pytest.mark.parametrize("rows,n_words", [(8, 256), (63, 33), (1, 5)])
+def test_beaver_and_opening_plain_vs_ref(rows, n_words):
+    """The opening form: this party's sent (d, e) and the peer's halves as
+    views of a received round buffer (party stride 3 x (2, R, W)) are
+    opened inside; equals the reference's beaver_and of d ^ d', e ^ e'."""
+    rng = np.random.default_rng(11)
+    sent = _words(rng, 2, 2, rows, n_words)
+    buf = _words(rng, 2, 3, 2, rows, n_words)
+    received, recv_t = buf[:, 1], _t(buf)[:, 1]
+    assert recv_t.stride(0) == 3 * 2 * rows * n_words
+    a, b, c = (_words(rng, 2, rows, n_words) for _ in range(3))
+    want = jref.beaver_and(jnp.asarray(sent[:, 0] ^ received[:, 0]),
+                           jnp.asarray(sent[:, 1] ^ received[:, 1]),
+                           *(jnp.asarray(x) for x in (a, b, c)),
+                           jnp.asarray(_sel_full(a.shape)))
+    sent_t = _t(sent)
+    args = (sent_t[:, 0], sent_t[:, 1], _t(a), _t(b), _t(c), _t(SEL),
+            recv_t[:, 0], recv_t[:, 1])
+    np.testing.assert_array_equal(tref.beaver_and_open(*args).numpy(), _i32(want))
+    np.testing.assert_array_equal(ops.beaver_and(*args).numpy(), _i32(want))
 
 
 @pytest.mark.parametrize("w,shift", [(8, 1), (8, 4), (64, 32), (6, 2), (64, 1)])
@@ -138,6 +160,104 @@ def test_ks_level_plain_vs_ref_and_pallas():
             g_want[rows], p_want[rows] = _i32(want[0]), _i32(want[1])
             np.testing.assert_array_equal(g_t[party].numpy(), g_want)
             np.testing.assert_array_equal(p_t[party].numpy(), p_want)
+
+
+def _cone_reference_round(route, sent, received, tri, g_map, p_map, init_pos,
+                          level, nxt_pos, nxt_shift, nxt_tri):
+    """One cone round of the reference (``src/repro/core/gmw.py:178-198``) on
+    (P, W) per-position planes: open, Beaver-AND (``ref.beaver_and`` or
+    ``beaver_and_pallas`` in interpret mode), combine (``ref.ks_level`` /
+    ``ks_level_pallas``) and the next level's lhs / rhs stack, masked.
+    Returns the next payload (P, 2, 2n', W), or None after the last."""
+    n_p, rows, n_words = tri[0].shape
+    d = jnp.asarray(sent[:, 0] ^ received[:, 0])
+    e = jnp.asarray(sent[:, 1] ^ received[:, 1])
+    a, b, c = (jnp.asarray(x) for x in tri)
+    sel = jnp.asarray(_sel_full(tri[0].shape))
+    if route == "pallas":
+        flat = [x.reshape(n_p * rows, n_words) for x in (d, e, a, b, c, sel)]
+        z = gmw_round.beaver_and_pallas(*flat, interpret=True,
+                                        block=(n_p * rows, n_words))
+        z = z.reshape(n_p, rows, n_words)
+    else:
+        z = jref.beaver_and(d, e, a, b, c, sel)
+    if level is None:
+        for j, i in enumerate(init_pos):
+            g_map[i] = z[:, j]
+    else:
+        n = len(level)
+        g_rows = jnp.stack([g_map[i] for i in level], axis=1)
+        if route == "pallas":
+            g_new, p_new = gmw_round.ks_level_pallas(
+                g_rows.reshape(n_p * n, n_words), z[:, :n].reshape(n_p * n, n_words),
+                z[:, n:].reshape(n_p * n, n_words), interpret=True,
+                block=(n_p * n, n_words))
+            g_new, p_new = (x.reshape(n_p, n, n_words) for x in (g_new, p_new))
+        else:
+            g_new, p_new = jref.ks_level(g_rows, z[:, :n], z[:, n:])
+        for j, i in enumerate(level):
+            g_map[i], p_map[i] = g_new[:, j], p_new[:, j]
+    if nxt_pos is None:
+        return None
+    lhs = jnp.stack([p_map[i] for i in nxt_pos] * 2, axis=-2)
+    rhs = jnp.stack([g_map[i - nxt_shift] for i in nxt_pos] +
+                    [p_map[i - nxt_shift] for i in nxt_pos], axis=-2)
+    return np.asarray(jnp.stack([lhs ^ jnp.asarray(nxt_tri[0]),
+                                 rhs ^ jnp.asarray(nxt_tri[1])], axis=1))
+
+
+@pytest.mark.parametrize("route", ["ref", "pallas"])
+@pytest.mark.parametrize("w,n_words", [(2, 4), (3, 5), (5, 33), (8, 64),
+                                       (21, 17), (64, 40)])
+def test_cone_step_plain_vs_ref_and_pallas(w, n_words, route):
+    """Every round of the cone adder, initial AND to the sign plane:
+    ``ref.cone_step`` (what the wrappers run on the CPU) against the
+    reference's per-position cone round, with its beaver_and and ks_level
+    from ``kernels/ref.py`` or as the Pallas kernels in interpret mode.
+    Each round's peer halves are views of a received round buffer (party
+    stride 3 x the payload); the next round sends what cone_step wrote.
+    g and p are updated in place; the sign plane is p0[w-1] ^ g[w-2]."""
+    rng = np.random.default_rng(12 + w)
+    init_pos, level_sets = tgmw.schedule_lib.cone_sets(w)
+    levels = [(lvl, pos) for lvl, pos in enumerate(level_sets) if pos]
+    assert [(lvl, pos[0], 2 << lvl, len(pos)) for lvl, pos in levels] == \
+        list(tgmw._cone_levels(w))
+    p0 = _words(rng, 2, w, n_words)
+    g_map, p_map = {}, {i: jnp.asarray(p0[:, i]) for i in range(w)}
+    g_t, p_t = _t(_words(rng, 2, w - 1, n_words)), _t(p0)
+    sent = _words(rng, 2, 2, w - 1, n_words)
+    tri = [_words(rng, 2, w - 1, n_words) for _ in range(3)]
+    level = None
+    for r in range(len(levels) + 1):
+        rows = sent.shape[2]
+        buf = _words(rng, 2, 3, 2, rows, n_words)
+        received, recv_t = buf[:, 1], _t(buf)[:, 1]
+        if r < len(levels):
+            lvl, pos = levels[r]
+            nxt_tri = [_words(rng, 2, 2 * len(pos), n_words) for _ in range(3)]
+            nxt = (pos[0], 2 << lvl, 1 << lvl)
+            nxt_args = (nxt, _t(nxt_tri[0]), _t(nxt_tri[1]))
+        else:
+            pos, nxt_tri, nxt, nxt_args = None, None, None, ()
+        want = _cone_reference_round(route, sent, received, tri, g_map, p_map,
+                                     init_pos, level and level_pos, pos,
+                                     nxt and nxt[2], nxt_tri)
+        got = tref.cone_step(_t(sent), recv_t[:, 0], recv_t[:, 1],
+                             *(_t(x) for x in tri), _t(SEL), g_t, p_t,
+                             level, *nxt_args)
+        for i in range(w - 1):
+            if i in g_map:
+                np.testing.assert_array_equal(g_t[:, i].numpy(), _i32(g_map[i]))
+        for i in range(w):
+            np.testing.assert_array_equal(p_t[:, i].numpy(), _i32(p_map[i]))
+        if want is None:
+            np.testing.assert_array_equal(
+                got.numpy(), _i32(p_map[w - 1] ^ g_map[w - 2]))
+        else:
+            np.testing.assert_array_equal(got.numpy(), _i32(want))
+            sent, tri = got.numpy().view(np.uint32), nxt_tri
+            level, level_pos = (pos[0], 2 << lvl), pos
+    assert r == len(levels)
 
 
 @pytest.mark.parametrize("w", [1, 8, 32])
@@ -252,9 +372,20 @@ def test_wrappers_take_the_plain_version_on_cpu():
     want = tref.ks_step(*args, g.clone(), a, a, 2)
     assert all(torch.equal(u, v)
                for u, v in zip(ops.ks_step(*args, g.clone(), a, a, 2), want))
+    halves = (sent[:, 0], sent[:, 1], a, a, a, _t(SEL), opened[:, 0], opened[:, 1])
+    assert torch.equal(ops.beaver_and(*halves), tref.beaver_and_open(*halves))
+    # w = 5: level 0 at rows 1, 3, then level 1's payload at row 3
+    g4, p5 = _t(_words(rng, 2, 4, 3)), _t(_words(rng, 2, 5, 3))
+    sent4, opened4 = _t(_words(rng, 2, 2, 4, 3)), _t(_words(rng, 2, 2, 4, 3))
+    a4, a2 = _t(_words(rng, 2, 4, 3)), _t(_words(rng, 2, 2, 3))
+    cone = (sent4, opened4[:, 0], opened4[:, 1], a4, a4, a4, _t(SEL))
+    g_k, p_k, g_p, p_p = g4.clone(), p5.clone(), g4.clone(), p5.clone()
+    got = ops.cone_step(*cone, g_k, p_k, (1, 2), (3, 4, 2), a2, a2)
+    want = tref.cone_step(*cone, g_p, p_p, (1, 2), (3, 4, 2), a2, a2)
+    assert torch.equal(got, want) and torch.equal(g_k, g_p) and torch.equal(p_k, p_p)
     assert ops.launch_counts() == {name: 0 for name in (
         "beaver_and", "ks_mask", "ks_combine", "ks_step", "ks_level",
-        "ring_matmul", "pack", "pack_ring", "unpack")}
+        "cone_step", "ring_matmul", "pack", "pack_ring", "unpack")}
 
 
 def _meta(dtype, *shape):
@@ -263,8 +394,12 @@ def _meta(dtype, *shape):
 
 _I32, _I64 = torch.int32, torch.int64
 _OFF_CPU_CALLS = {
-    "beaver_and": lambda: ops.beaver_and(*(_meta(_I32, 2, 1, 4) for _ in range(5)),
-                                         _meta(_I32, 2)),
+    "beaver_and": (
+        lambda: ops.beaver_and(*(_meta(_I32, 2, 1, 4) for _ in range(5)),
+                               _meta(_I32, 2)),
+        lambda: ops.beaver_and(*(_meta(_I32, 2, 1, 4) for _ in range(5)),
+                               _meta(_I32, 2), _meta(_I32, 2, 1, 4),
+                               _meta(_I32, 2, 1, 4))),
     "ks_mask": lambda: ops.ks_mask(_meta(_I32, 2, 1, 4), _meta(_I32, 2, 1, 4),
                                    _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4), 1),
     "ks_combine": lambda: ops.ks_combine(*(_meta(_I32, 2, 2, 4) for _ in range(7)),
@@ -275,6 +410,16 @@ _OFF_CPU_CALLS = {
                                    _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4), 2),
     "ks_level": lambda: ops.ks_level(_meta(_I32, 2, 3, 4), _meta(_I32, 2, 3, 4),
                                      _meta(_I32, 2, 2, 4), 0, 1),
+    "cone_step": (
+        lambda: ops.cone_step(_meta(_I32, 2, 2, 2, 4),
+                              *(_meta(_I32, 2, 2, 4) for _ in range(5)),
+                              _meta(_I32, 2), _meta(_I32, 2, 2, 4),
+                              _meta(_I32, 2, 3, 4)),
+        lambda: ops.cone_step(_meta(_I32, 2, 2, 2, 4),
+                              *(_meta(_I32, 2, 2, 4) for _ in range(5)),
+                              _meta(_I32, 2), _meta(_I32, 2, 2, 4),
+                              _meta(_I32, 2, 3, 4), None, (1, 2, 1),
+                              _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4))),
     "ring_matmul": lambda: ops.ring_matmul(_meta(_I64, 2, 3), _meta(_I32, 3, 2)),
     "pack": lambda: ops.pack(_meta(_I32, 2, 64), 1),
     "pack_ring": lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0),
@@ -285,9 +430,13 @@ _OFF_CPU_CALLS = {
 @pytest.mark.parametrize("name", sorted(_OFF_CPU_CALLS))
 def test_wrappers_have_no_fallback_off_the_cpu(name):
     """Only a CPU tensor takes the plain version: any other device reaches
-    the kernel's checks, which raise where the kernel cannot run."""
+    the kernel's checks, which raise where the kernel cannot run (every
+    form of a wrapper: beaver_and's plain and opening forms, cone_step's
+    initial and level rounds)."""
     assert name in ops.launch_counts()
+    calls = _OFF_CPU_CALLS[name]
     ops.reset_launches()
-    with pytest.raises(ValueError, match="the kernel runs on CUDA"):
-        _OFF_CPU_CALLS[name]()
+    for call in calls if isinstance(calls, tuple) else (calls,):
+        with pytest.raises(ValueError, match="the kernel runs on CUDA"):
+            call()
     assert ops.launch_counts()[name] == 0

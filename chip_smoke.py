@@ -29,7 +29,10 @@ Phases (any failure raises, and the script exits non-zero):
    kernel's tensor-core (IMMA) and IMAD counts from its SASS and its
    registers and spills from ptxas; unpack at the four sign-plane shapes
    (``SIGN_PLANES``) with its sum per main-path call beside the bound,
-   at the ragged merge's shape and at w = 8 and 32;
+   at the ragged merge's shape and at w = 8 and 32; pack_ring with the A2B
+   mask (the main path's form) at its seven main-path shapes
+   (``PACK_RING_SHAPES``) with its sum per main-path call beside the
+   bound, and unmasked at the stem's (64, 0) and (21, 13);
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
@@ -41,8 +44,9 @@ Phases (any failure raises, and the script exits non-zero):
    wall and device bytes printed); then one untimed warm-up call; then
    ``ONLINE_CALLS`` timed calls (median, min, max).  Launch counters are
    zeroed just before each call and read just after; each call must
-   launch exactly the kernels of its path (``PATH_KERNELS``), unpack once
-   per ReLU (the sign plane) and the adders' kernels as often as their
+   launch exactly the kernels of its path (``PATH_KERNELS``), pack_ring
+   once per ReLU, every launch with the A2B mask, unpack once per ReLU
+   (the sign plane) and the adders' kernels as often as their
    levels say (``adder_launches``: the cone adder one cone_step per
    round).  Measured fused rounds and bytes
    must equal ``plan.schedule(streams=4)``; the exact plans' revealed
@@ -97,18 +101,21 @@ STREAMS = 4
 RELU_GROUPS = ((65536, 1), (65536, 4), (32768, 4), (16384, 4), (8192, 4))
 PLAN_WIDTHS = {"exact": (64,) * 5, "reduced": (8,) * 4 + (0,)}
 PLAN_WIDTHS.update({f"{p}-cone": ws for p, ws in PLAN_WIDTHS.items()})
+# each plan width's ring bits (k, m), as ``resnet_setup`` builds the plans
+RING_BITS = {64: (64, 0), 8: (21, 13)}
 # the sign plane's unpack: (2 parties, w = 1, n = 4 requests' elements)
 SIGN_PLANES = tuple(sorted({STREAMS * n for n, _ in RELU_GROUPS}, reverse=True))
 # the ragged-merge path's elements per stream: not a multiple of 32
 RAGGED_N = 8209
-# the kernels each run must launch, and no others: pack_ring and unpack
-# (the sign plane) on every ReLU, ring_matmul on every conv and fc; the
-# dense adder runs on beaver_and (its initial AND), ks_mask (its first
-# level), ks_step (one per level after the first) and ks_combine (its last
-# level), the cone adder on cone_step alone (one per round).  Every
-# ResNet-18 group's element count is a multiple of 32, so the 4 streams'
-# triples merge by word concatenation; the ragged-merge path's are not,
-# and its merges unpack and pack.
+# the kernels each run must launch, and no others: pack_ring (masked: the
+# A2B round's v ^ r) and unpack (the sign plane) on every ReLU,
+# ring_matmul on every conv and fc; the dense adder runs on beaver_and
+# (its initial AND), ks_mask (its first level), ks_step (one per level
+# after the first) and ks_combine (its last level), the cone adder on
+# cone_step alone (one per round).  Every ResNet-18 group's element count
+# is a multiple of 32, so the 4 streams' triples merge by word
+# concatenation; the ragged-merge path's are not, and its merges unpack
+# and pack.
 _RELU = {"pack_ring", "unpack"}
 _DENSE = {"beaver_and", "ks_mask", "ks_step", "ks_combine"}
 _CONE = {"cone_step"}
@@ -353,6 +360,32 @@ def sign_plane_launches(plan: str) -> dict:
     return out
 
 
+def pack_ring_launches(plan: str) -> dict:
+    """pack_ring's launches per main-path call at each (k, m, E): one per
+    ReLU, E the 4 requests' elements."""
+    out = {}
+    for (n, relus), w in zip(RELU_GROUPS, PLAN_WIDTHS[plan]):
+        if w:
+            shape = RING_BITS[w] + (STREAMS * n,)
+            out[shape] = out.get(shape, 0) + relus
+    return out
+
+
+# pack_ring's seven main-path shapes (k, m, E)
+PACK_RING_SHAPES = tuple(sorted({s for plan in PLAN_WIDTHS
+                                 for s in pack_ring_launches(plan)}, reverse=True))
+SUM_KEYS = ("ms", "hot_ms", "eager_call_ms", "bound_ms")
+
+
+def call_sums(by_shape: dict, launches: dict) -> dict:
+    """Launches x each of ``SUM_KEYS`` summed over a call's shapes, and the
+    launches: ``by_shape`` maps each shape to its record."""
+    out = {key: sum(c * by_shape[s][key] for s, c in launches.items())
+           for key in SUM_KEYS}
+    out["launches"] = sum(launches.values())
+    return out
+
+
 def adder_launches(plan: str) -> dict:
     """The adders' launches per main-path call, per ReLU of width w > 1:
     dense, with L = ceil(log2 w) levels, beaver_and (the initial AND),
@@ -415,16 +448,30 @@ def sign_plane_sums(sign_rows) -> dict:
     by_n = {int(r["shape"].rsplit("n=", 1)[1]): r for r in sign_rows}
     out = {}
     for plan in PLAN_WIDTHS:
-        launches = sign_plane_launches(plan)
-        out[plan] = {key: sum(c * by_n[n][key] for n, c in launches.items())
-                     for key in ("ms", "hot_ms", "eager_call_ms", "bound_ms")}
-        out[plan]["launches"] = sum(launches.values())
+        out[plan] = call_sums(by_n, sign_plane_launches(plan))
         if plan.endswith("cone"):
             continue
         print(f"unpack per {plan} call ({out[plan]['launches']} sign planes): "
               f"{out[plan]['ms']:.4f} ms from DRAM, {out[plan]['hot_ms']:.4f} "
               f"ms from L2, {out[plan]['eager_call_ms']:.4f} ms eager; card "
               f"bound {out[plan]['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def pack_ring_sums(rows) -> dict:
+    """Per plan, the masked pack_ring's launches x ms per main-path call
+    over its seven shapes, from their records (key ``pack_ring_shape``)."""
+    by_shape = {r["pack_ring_shape"]: r for r in rows}
+    out = {}
+    for plan in PLAN_WIDTHS:
+        out[plan] = call_sums(by_shape, pack_ring_launches(plan))
+        if plan.endswith("cone"):
+            continue
+        print(f"pack_ring (masked) per {plan} call ({out[plan]['launches']} "
+              f"ReLUs): {out[plan]['ms']:.4f} ms from DRAM, "
+              f"{out[plan]['hot_ms']:.4f} ms from L2, "
+              f"{out[plan]['eager_call_ms']:.4f} ms eager; card bound "
+              f"{out[plan]['bound_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -549,7 +596,28 @@ def kernel_phase():
                cone_step_bytes(w, r, n_words, P),
                shape=f"P={P} w={w} round={r} rows={rows_r} W={n_words}",
                into=into, path="exact-cone" if w == 64 else "reduced-cone")
-    # the A2B input: bits m..k-1 of the stem's merged shares
+    # the A2B input: bits m..k-1 of the merged shares, XORed with the A2B
+    # masks in the same launch, at the seven main-path shapes (the stem's
+    # (64, 0) is a row of the kernels line), then the unmasked form at the
+    # stem's two shapes
+    masked = []
+    for k, m, e in PACK_RING_SHAPES:
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
+                          dtype=torch.int64).cuda()
+        r = words(gen, P, k - m, (e + 31) // 32)
+        row = record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
+                     "src/repro/kernels/bitpack.py:44",
+                     lambda: ops.pack_ring(x, k, m, mask=r),
+                     lambda: ref.pack_ring(x, k, m, r),
+                     8 * P * e + 8 * r.numel(),
+                     shape=f"P={P} E={e} k={k} m={m} masked",
+                     into=rows if (k, m, e) == (64, 0, n_el) else extra,
+                     path="exact" if k - m == 64 else "reduced")
+        row["pack_ring_shape"] = (k, m, e)
+        masked.append(row)
+    sums = pack_ring_sums(masked)
+    for row in masked:
+        row["per_call_sums"] = sums
     x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, n_el), generator=gen,
                       dtype=torch.int64).cuda()
     for (k, m), into in (((64, 0), rows), ((21, 13), extra)):
@@ -669,7 +737,7 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         outs = model(enc)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts = ops.launch_counts()
+        counts, masked = ops.launch_counts(), ops.pack_ring.masked
         launched = {k for k, v in counts.items() if v}
         if expect is not None and launched != expect:
             raise AssertionError(f"{name}: launched {sorted(launched)}, its path "
@@ -677,10 +745,14 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         if expect is not None:
             want_adder = adder_launches(name)
             want_adder["unpack"] = sum(sign_plane_launches(name).values())
+            want_adder["pack_ring"] = want_adder["unpack"]
             got_adder = {k: counts[k] for k in want_adder}
             if got_adder != want_adder:
                 raise AssertionError(f"{name}: launched {got_adder}, its "
                                      f"levels and ReLUs say {want_adder}")
+            if masked != counts["pack_ring"]:
+                raise AssertionError(f"{name}: {masked} of {counts['pack_ring']} "
+                                     f"pack_ring launches took the A2B mask")
         if (cc.n_rounds - r0, cc.bytes_tx - b0) != (sched.n_rounds, sched.bytes_tx):
             raise AssertionError(
                 f"{name}: measured {cc.n_rounds - r0} rounds / {cc.bytes_tx - b0} "
@@ -697,7 +769,8 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
            "online_s": walls, "online_median_s": statistics.median(walls),
            "online_min_s": min(walls), "online_max_s": max(walls),
            "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
-           "max_abs_err_vs_plaintext": max(errs), "launches": counts}
+           "max_abs_err_vs_plaintext": max(errs), "launches": counts,
+           "pack_ring_masked": masked}
     if profile:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -769,11 +842,12 @@ def ragged_merge_phase():
                                       cone=cone)
             if dev == "cuda":
                 torch.cuda.synchronize()
-                counts = ops.launch_counts()
+                counts, masked = ops.launch_counts(), ops.pack_ring.masked
         launched = {kn for kn, v in counts.items() if v}
-        if launched != PATH_KERNELS[name]:
-            raise AssertionError(f"{name}: launched {sorted(launched)}, its path "
-                                 f"runs {sorted(PATH_KERNELS[name])}")
+        if launched != PATH_KERNELS[name] or masked != counts["pack_ring"]:
+            raise AssertionError(f"{name}: launched {sorted(launched)} "
+                                 f"({masked} pack_ring masked), its path runs "
+                                 f"{sorted(PATH_KERNELS[name])}, pack_ring masked")
         for got, want in zip(outs["cuda"], outs["cpu"]):
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"{name}: shares differ from the CPU run")

@@ -14,12 +14,13 @@ per communication round and is sent the peer's payload back:
 ``run_streams`` / ``relu_many`` advance sibling generators in lockstep and
 coalesce each round into ONE exchange.  Round-local compute runs in the
 CUDA kernels of ``kernels/ops.py``: ``pack_ring`` packs the reduced-ring
-bits straight from the shares, the dense Kogge-Stone adder runs on
-``beaver_and`` (its initial AND, opening the exchanged (d, e) itself),
-``ks_mask`` (its first level), ``ks_step`` (one launch between two
-exchanges) and ``ks_combine`` (its last level), the MSB-cone-pruned adder
-(``cone=True``) on ``cone_step`` (one launch between two exchanges, the
-last one writing the sign plane), and ``unpack`` opens the sign plane.  Shares are bit-identical to the reference for the same
+bits straight from the shares, XORed with the A2B masks, the dense
+Kogge-Stone adder runs on ``beaver_and`` (its initial AND, opening the
+exchanged (d, e) itself), ``ks_mask`` (its first level), ``ks_step`` (one
+launch between two exchanges) and ``ks_combine`` (its last level), the
+MSB-cone-pruned adder (``cone=True``) on ``cone_step`` (one launch between
+two exchanges, the last one writing the sign plane), and ``unpack`` opens
+the sign plane.  Shares are bit-identical to the reference for the same
 keys, triples and inputs.
 """
 from __future__ import annotations
@@ -207,14 +208,18 @@ def adder_msb(xw, yw, triples: beaver.ReluTriples, comm, w: int,
 # A2B prep: XOR-share each party's (reduced-ring) arithmetic share
 # ---------------------------------------------------------------------------
 
-def _a2b_prepare_rounds(key, v_packed: torch.Tensor, comm):
-    # every party derives the full (n_parties, ...) masks from the shared
-    # key and keeps its own rows (``party_slice``)
-    full = prng.bits_words(key, (comm.n_parties,) + tuple(v_packed.shape[1:]))
-    r = comm.party_slice(full)
-    masked = v_packed ^ r
+def _a2b_mask(key, planes_shape: Sequence[int], comm) -> torch.Tensor:
+    """Each party's A2B mask words for its (w, W) packed planes: every
+    party derives the full (n_parties, w, W) masks from the shared key and
+    keeps its own rows (``party_slice``)."""
+    full = prng.bits_words(key, (comm.n_parties,) + tuple(planes_shape))
+    return comm.party_slice(full)
+
+
+def _a2b_share_rounds(masked: torch.Tensor, r: torch.Tensor, comm):
+    """The A2B round, from each party's masked planes v ^ r and mask r."""
     other_mask = yield r
-    p0 = comm.party_is(0, v_packed)
+    p0 = comm.party_is(0, masked)
     x0_shares = torch.where(p0, masked, other_mask)   # shares of party 0's value
     x1_shares = torch.where(p0, other_mask, masked)   # shares of party 1's value
     return x0_shares, x1_shares
@@ -223,7 +228,8 @@ def _a2b_prepare_rounds(key, v_packed: torch.Tensor, comm):
 def a2b_prepare(key, v_packed: torch.Tensor, comm) -> Tuple[torch.Tensor, torch.Tensor]:
     """From each party's packed planes (P, w, W) of its own arithmetic
     share, XOR shares of party 0's and party 1's values.  One round."""
-    return drive(_a2b_prepare_rounds(key, v_packed, comm), comm)
+    r = _a2b_mask(key, v_packed.shape[1:], comm)
+    return drive(_a2b_share_rounds(v_packed ^ r, r, comm), comm)
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +281,12 @@ def _drelu_rounds(key, x: torch.Tensor, triples: beaver.ReluTriples, comm,
                   k: int, m: int, cone: bool):
     w = k - m
     n = x.shape[-1]
-    packed = kops.pack_ring(x.contiguous(), k, m)                     # (P, w, W)
-    x0s, x1s = yield from _a2b_prepare_rounds(key, packed, comm)      # 1 round
+    # the A2B masks r, then v ^ r packed straight from the shares in one
+    # launch (P, w, W)
+    r = _a2b_mask(key, tuple(x.shape[1:-1]) + (w, (n + 31) // 32),
+                  comm).contiguous()
+    masked = kops.pack_ring(x.contiguous(), k, m, mask=r)
+    x0s, x1s = yield from _a2b_share_rounds(masked, r, comm)          # 1 round
     sign_packed = yield from _adder_msb_rounds(x0s, x1s, triples, comm, w, cone)
     sign_bits = shares.unpack_bits(sign_packed, n)                    # (P, E)
     s = yield from _b2a_bit_rounds(sign_bits, triples.b2a, comm)      # 1 round

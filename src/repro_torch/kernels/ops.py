@@ -36,7 +36,9 @@ the card (design notes in the CUDA sources):
   26 int8 digit-plane products, the fewest a byte-digit scheme needs,
   over the 1979 TOP/s int8 tensor cores; the kernel issues 30).
 - ``pack`` and ``pack_ring``: ``kernels/bitpack.py:44`` ``pack_pallas``;
-  bytes, each value read once (4 or 8 bytes) and 4 per word written.
+  bytes, each value read once (4 or 8 bytes) and 4 per word written;
+  ``pack_ring``'s masked form (the A2B round's ``packed ^ mask``) also
+  reads 4 per mask word.
 - ``unpack``: ``kernels/bitpack.py:60`` ``unpack_pallas``; bytes, 4 per
   word read and 4 per value written.
 """
@@ -45,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -65,7 +67,7 @@ _SIGNATURES = {
                      [_P, _P, _I, _P, _I] + [_P] * 9 + [_I] * 10 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
     "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
-    "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P]),
+    "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P, _P]),
     "hb_unpack": ("bitpack.cu", [_P, _I, _I, _I, _I, _P, _P]),
 }
 
@@ -386,21 +388,35 @@ def pack(v: torch.Tensor, w: int) -> torch.Tensor:
     return out
 
 
-def pack_ring(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
+def pack_ring(x: torch.Tensor, k: int, m: int,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(..., E) int64 ring values -> (..., k - m, ceil(E/32)) int32 words
     of bits m..k-1 (0 <= m < k <= 64): the reduced-ring A2B input, packed
-    straight from the shares."""
-    if _on_cpu(x):
-        return ref.pack_ring(x, k, m)
-    _check("pack_ring", [x], torch.int64)
+    straight from the shares.  With ``mask`` (int32 words of the output's
+    shape, contiguous) the words come out XORed with it, in the same
+    launch: the A2B round's masked planes.  ``pack_ring.masked`` counts
+    the launches of that form (they count in ``launches`` too)."""
     if not 0 <= m < k <= 64:
         raise ValueError(f"pack_ring: (k, m) = ({k}, {m}) outside 0 <= m < k <= 64")
     lead, n, shape = _packed_shape("pack_ring", x, k - m)
+    if mask is not None:
+        if tuple(mask.shape) != shape or mask.dtype != torch.int32 \
+                or not mask.is_contiguous():
+            raise ValueError(f"pack_ring: mask must be contiguous int32 {shape}, "
+                             f"got {mask.dtype} {tuple(mask.shape)}")
+    if _on_cpu(x):
+        return ref.pack_ring(x, k, m, mask)
+    _check("pack_ring", [x], torch.int64)
+    if mask is not None:
+        _check("pack_ring", [mask], torch.int32)
+        if mask.device != x.device:
+            raise ValueError(f"pack_ring: mask on {mask.device}, x on {x.device}")
     out = torch.empty(shape, dtype=torch.int32, device=x.device)
     if out.numel():
         _launch("hb_pack_ring", x.data_ptr(), math.prod(lead), n,
-                out.data_ptr(), k, m)
+                out.data_ptr(), k, m, None if mask is None else mask.data_ptr())
         pack_ring.launches += 1
+        pack_ring.masked += mask is not None
     return out
 
 
@@ -454,11 +470,13 @@ KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, cone_step,
            ring_matmul, pack, pack_ring, unpack)
 for _k in KERNELS:
     _k.launches = 0
+pack_ring.masked = 0
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    pack_ring.masked = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,6 +7,8 @@ party (all-ones on party 0).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # The most K one int32 shift accumulator of the ring_matmul kernel takes:
@@ -123,9 +125,12 @@ def pack(v: torch.Tensor, w: int, shift: int = 0) -> torch.Tensor:
     return (bits << lanes).sum(dim=-1).to(torch.int32)
 
 
-def pack_ring(x: torch.Tensor, k: int, m: int) -> torch.Tensor:
-    """int64 ring values (..., E) -> (..., k - m, W) words of bits m..k-1."""
-    return pack(x, k - m, shift=m)
+def pack_ring(x: torch.Tensor, k: int, m: int,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int64 ring values (..., E) -> (..., k - m, W) words of bits m..k-1,
+    XORed with ``mask`` (words of the same shape) where it is given."""
+    words = pack(x, k - m, shift=m)
+    return words if mask is None else words ^ mask
 
 
 def unpack(words: torch.Tensor, n: int) -> torch.Tensor:

@@ -6,6 +6,7 @@ tests/test_torch_cuda.py`` (the suite's conftest imports jax).  Without a card
 it skips."""
 import pathlib
 import sys
+from math import prod
 
 import pytest
 import torch
@@ -86,6 +87,72 @@ def test_cuda_ks_level_and_bitpack_equal_plain_versions():
     counts = ops.launch_counts()
     assert {k: counts[k] for k in ("ks_level", "pack", "pack_ring", "unpack")} \
         == {"ks_level": 3, "pack": 12, "pack_ring": 20, "unpack": 12}
+
+
+@pytest.mark.cuda
+def test_cuda_pack_every_width_and_the_masked_form():
+    """The redesigned pack kernel: pack_ring at every w from 1 to 64, plain
+    and masked (the A2B round's form), and pack at every w from 1 to 32,
+    at E = 1, 31, 33, 1000, 70000 and 262144 (odd E takes one-value
+    copies, W % 4 != 0 one-word stores); more rows than one wave of the
+    grid holds; inputs and a mask one element off 16-byte alignment (no
+    16-byte copies); a mask of the wrong shape or dtype raising.  Each
+    output torch.equal to the plain version; exact launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(7)
+
+    def ints(dtype, *shape, offset=0):
+        info = torch.iinfo(dtype)
+        flat = torch.randint(info.min, info.max, (offset + prod(shape),),
+                             generator=gen, dtype=torch.int64).to(dtype).cuda()
+        return flat[offset:].view(shape)      # contiguous, offset elements in
+
+    def masks(shape, offset=0):
+        return ints(torch.int32, *shape, offset=offset)
+
+    cases = []                                # (x, k, m, mask), (v, w)
+    for e in (1, 31, 33, 1000, 70000, 262144):
+        x, v = ints(torch.int64, 2, e), ints(torch.int32, 2, e)
+        for w in range(1, 65):
+            m = 7 * w % (65 - w)                # 0 <= m <= 64 - w, spread
+            shape = (2, w, (e + 31) // 32)
+            cases += [(x, m + w, m, None), (x, m + w, m, masks(shape))]
+            if w <= 32:
+                cases.append((v, w))
+    # past one wave: an SM holds at most 8 blocks of the 256-thread kernel,
+    # so 40 x SMs rows of one tile (8 words) each need more laps
+    rows = 40 * torch.cuda.get_device_properties(0).multi_processor_count
+    big = ints(torch.int64, rows, 256)
+    cases += [(big, 64, 0, None), (big, 21, 13, masks((rows, 8, 8))),
+              (ints(torch.int32, rows, 256), 1)]
+    # one element off 16-byte alignment: values and mask words
+    for e in (64, 1000):
+        shape = (2, 8, (e + 31) // 32)
+        cases += [(ints(torch.int64, 2, e, offset=1), 21, 13, None),
+                  (ints(torch.int64, 2, e, offset=1), 21, 13, masks(shape, offset=1)),
+                  (ints(torch.int64, 2, e), 64, 0, masks((2, 64, shape[-1]), offset=1)),
+                  (ints(torch.int32, 2, e, offset=1), 5)]
+    ops.reset_launches()
+    for case in cases:
+        if len(case) == 2:
+            v, w = case
+            assert torch.equal(ops.pack(v, w), tref.pack(v, w)), (tuple(v.shape), w)
+        else:
+            x, k, m, mask = case
+            assert torch.equal(ops.pack_ring(x, k, m, mask=mask),
+                               tref.pack_ring(x, k, m, mask)), (tuple(x.shape), k, m)
+    torch.cuda.synchronize()
+    ring = [c for c in cases if len(c) == 4]
+    assert (ops.launch_counts()["pack"], ops.launch_counts()["pack_ring"],
+            ops.pack_ring.masked) == (len(cases) - len(ring), len(ring),
+                                      sum(c[3] is not None for c in ring))
+    x = ints(torch.int64, 2, 1000)
+    for bad in (masks((2, 8, 31)), masks((2, 32, 8)).transpose(1, 2),
+                torch.zeros((2, 8, 32), dtype=torch.int64, device="cuda")):
+        with pytest.raises(ValueError, match="mask must be"):
+            ops.pack_ring(x, 21, 13, mask=bad)
+    assert ops.launch_counts()["pack_ring"] == len(ring)
 
 
 def _main_path_matmuls():

@@ -46,9 +46,24 @@ def _same_triples(jt, tt):
             _same(getattr(ja, f), getattr(ta, f))
 
 
+def _spy_pack_ring(monkeypatch) -> list:
+    """Record whether each ``pack_ring`` call of the GMW engine takes the
+    A2B mask (the fused route: one launch for v ^ r on the card)."""
+    calls, real = [], tgmw.kops.pack_ring
+
+    def spy(x, k, m, mask=None):
+        calls.append(mask is not None)
+        return real(x, k, m, mask=mask)
+
+    monkeypatch.setattr(tgmw.kops, "pack_ring", spy)
+    return calls
+
+
 @pytest.mark.parametrize("k,m", [(64, 0), (21, 13), (14, 13)])
-def test_relu_shares_bit_identical(k, m):
-    """Exact 64-bit, HummingBird (21, 13) and w = 1."""
+def test_relu_shares_bit_identical(k, m, monkeypatch):
+    """Exact 64-bit, HummingBird (21, 13) and w = 1, the A2B masks folded
+    into ``pack_ring``."""
+    calls = _spy_pack_ring(monkeypatch)
     x, js, ts = _shares(1, N)
     jt = jbeaver.gen_relu_triples(jax.random.PRNGKey(2), N, k - m)
     tt = tbeaver.gen_relu_triples(prng.PRNGKey(2, "cpu"), N, k - m)
@@ -57,6 +72,7 @@ def test_relu_shares_bit_identical(k, m):
     cm = tcomm.CountingComm()
     tout = tgmw.relu(prng.PRNGKey(3, "cpu"), ts, tt, cm, k=k, m=m)
     _same(jout, tout)
+    assert calls == [True]
     sched = schedule.simulate([(N, k - m, (N, k, m))])
     assert (cm.n_swaps, cm.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
     if k == 64:
@@ -145,10 +161,11 @@ def test_cone_triples_bit_identical(w):
 
 
 @pytest.mark.parametrize("k,m", [(64, 0), (21, 13), (22, 13), (14, 13)])
-def test_cone_relu_shares_bit_identical(k, m):
+def test_cone_relu_shares_bit_identical(k, m, monkeypatch):
     """The MSB-cone-pruned adder: shares bit-identical to the reference's
     cone path (w = 9 runs an empty level), counters equal
-    ``simulate(cone=True)``."""
+    ``simulate(cone=True)``; the A2B masks folded into ``pack_ring``."""
+    calls = _spy_pack_ring(monkeypatch)
     x, js, ts = _shares(1, N)
     jt = jbeaver.gen_relu_triples(jax.random.PRNGKey(2), N, k - m, cone=True)
     tt = tbeaver.gen_relu_triples(prng.PRNGKey(2, "cpu"), N, k - m, cone=True)
@@ -157,6 +174,7 @@ def test_cone_relu_shares_bit_identical(k, m):
     cm = tcomm.CountingComm()
     tout = tgmw.relu(prng.PRNGKey(3, "cpu"), ts, tt, cm, k=k, m=m, cone=True)
     _same(jout, tout)
+    assert calls == [True]
     sched = schedule.simulate([(N, k - m, (N, k, m))], cone=True)
     assert (cm.n_swaps, cm.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
 

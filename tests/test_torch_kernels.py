@@ -383,6 +383,12 @@ def test_wrappers_take_the_plain_version_on_cpu():
     got = ops.cone_step(*cone, g_k, p_k, (1, 2), (3, 4, 2), a2, a2)
     want = tref.cone_step(*cone, g_p, p_p, (1, 2), (3, 4, 2), a2, a2)
     assert torch.equal(got, want) and torch.equal(g_k, g_p) and torch.equal(p_k, p_p)
+    x64 = tring.from_uint64_np(rng.integers(0, 2 ** 64, (2, 70), dtype=np.uint64),
+                               "cpu")
+    r = _t(_words(rng, 2, 8, 3))
+    assert torch.equal(ops.pack_ring(x64, 21, 13, mask=r),
+                       tref.pack_ring(x64, 21, 13) ^ r)
+    assert ops.pack_ring.masked == 0
     assert ops.launch_counts() == {name: 0 for name in (
         "beaver_and", "ks_mask", "ks_combine", "ks_step", "ks_level",
         "cone_step", "ring_matmul", "pack", "pack_ring", "unpack")}
@@ -422,7 +428,10 @@ _OFF_CPU_CALLS = {
                               _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4))),
     "ring_matmul": lambda: ops.ring_matmul(_meta(_I64, 2, 3), _meta(_I32, 3, 2)),
     "pack": lambda: ops.pack(_meta(_I32, 2, 64), 1),
-    "pack_ring": lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0),
+    "pack_ring": (
+        lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0),
+        lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0,
+                              mask=_meta(_I32, 2, 64, 2))),
     "unpack": lambda: ops.unpack(_meta(_I32, 2, 1, 2), 64),
 }
 
@@ -432,11 +441,11 @@ def test_wrappers_have_no_fallback_off_the_cpu(name):
     """Only a CPU tensor takes the plain version: any other device reaches
     the kernel's checks, which raise where the kernel cannot run (every
     form of a wrapper: beaver_and's plain and opening forms, cone_step's
-    initial and level rounds)."""
+    initial and level rounds, pack_ring's plain and masked forms)."""
     assert name in ops.launch_counts()
     calls = _OFF_CPU_CALLS[name]
     ops.reset_launches()
     for call in calls if isinstance(calls, tuple) else (calls,):
         with pytest.raises(ValueError, match="the kernel runs on CUDA"):
             call()
-    assert ops.launch_counts()[name] == 0
+    assert ops.launch_counts()[name] == 0 and ops.pack_ring.masked == 0

@@ -77,6 +77,28 @@ def test_extract(k, m):
     np.testing.assert_array_equal(tref.pack_ring(ta, k, m).numpy(), want)
 
 
+@pytest.mark.parametrize("k,m", [(14, 13), (15, 13), (18, 13), (21, 13), (29, 13),
+                                 (21, 0), (64, 32), (45, 12), (64, 0)])
+def test_extract_masked(k, m):
+    """``pack_ring``'s masked form (the A2B round's masked planes, in one
+    launch on the card) at w = 1, 2, 5, 8, 16, 21, 32, 33 and 64: the
+    reference's extraction and ``shares.pack_bits``, XORed with the same
+    mask words; E is ragged.  A mask of another shape raises."""
+    ja, ta = _pair(_values(5))
+    w = k - m
+    planes = (jring.bitplanes_u32(jring.extract_bits(ja, k, m), w) if w <= 32
+              else jring.extract_planes(ja, k, m))
+    packed = np.asarray(jshares.pack_bits(planes))
+    mask = np.random.default_rng(w).integers(0, 2 ** 32, packed.shape,
+                                             dtype=np.uint64).astype(np.uint32)
+    want = (packed ^ mask).view(np.int32)
+    mask_t = torch.from_numpy(mask.view(np.int32))
+    np.testing.assert_array_equal(ops.pack_ring(ta, k, m, mask=mask_t).numpy(), want)
+    np.testing.assert_array_equal(tref.pack_ring(ta, k, m, mask_t).numpy(), want)
+    with pytest.raises(ValueError, match="mask must be"):
+        ops.pack_ring(ta, k, m, mask=mask_t[..., :-1])
+
+
 def test_limb_converters_and_uniform():
     vals = _values(6)
     ja = jring.from_uint64_np(vals)

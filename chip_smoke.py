@@ -41,18 +41,28 @@ Phases (any failure raises, and the script exits non-zero):
    same two with the MSB-cone-pruned adder (``cone=True``).  Per plan:
    offline, the session's triple pool for 1 + ``ONLINE_CALLS`` calls
    (``Session.offline``, 4 streams) is generated before any timer (its
-   wall and device bytes printed); then one untimed warm-up call; then
-   ``ONLINE_CALLS`` timed calls (median, min, max).  Launch counters are
-   zeroed just before each call and read just after; each call must
-   launch exactly the kernels of its path (``PATH_KERNELS``), pack_ring
-   once per ReLU, every launch with the A2B mask, unpack once per ReLU
-   (the sign plane) and the adders' kernels as often as their
-   levels say (``adder_launches``: the cone adder one cone_step per
-   round).  Measured fused rounds and bytes
-   must equal ``plan.schedule(streams=4)``; the exact plans' revealed
-   logits must match the plaintext forward within the stated tolerance.
-   One more exact call runs under torch.profiler: the whole online call's
-   device-busy share;
+   wall and device bytes printed); then each call runs twice on the same
+   key and triples (the pool rolled back between them): on the generator
+   loop (``HB_ROUND_LOOP=python``) and on the captured replay (``scan``,
+   one CUDA graph per stream signature); one untimed warm-up pair (the
+   replay's first call runs the generator loop and captures), then
+   ``ONLINE_CALLS`` timed pairs (median, min, max per loop).  Launch
+   counters are zeroed just before each call and read just after; each
+   eager call must launch exactly the kernels of its path
+   (``PATH_KERNELS``), pack_ring once per ReLU, every launch with the A2B
+   mask, unpack once per ReLU (the sign plane) and the adders' kernels as
+   often as their levels say (``adder_launches``: the cone adder one
+   cone_step per round).  Each replay must give the eager call's shares,
+   launch nothing from the host, hold in its graph the eager call's
+   launches, and leave the previous replay's result as it was.  Every
+   call's fused rounds and bytes must equal ``plan.schedule(streams=4)``;
+   the exact plans' revealed logits must match the plaintext forward
+   within the stated tolerance.  Then, per plan, the replay's input refill
+   (device ms and launches) and the eager key split are timed, and one
+   replay runs under torch.profiler (its device-busy share, and its
+   kernels counted by name against its capture) and one under cProfile
+   (the host's time by function); one exact call on the generator loop
+   is profiled too;
 5. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
    (not a multiple of 32, so their triples merge at the bit level, through
    unpack and pack), dense at (64, 0) and with the cone at (21, 13), each
@@ -74,6 +84,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -125,8 +136,15 @@ PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "reduced-cone": _RELU | {"ring_matmul"} | _CONE,
                 "ragged-merge": _RELU | {"pack"} | _DENSE,
                 "ragged-merge-cone": _RELU | {"pack"} | _CONE}
-# timed online calls per plan, after one warm-up call; the pool holds
-# triples for all of them (1 + ONLINE_CALLS requests of 4 streams)
+# each wrapper's kernel, by its symbol in a profiler trace (a captured
+# replay's launches are counted there: the wrappers' counters do not tick)
+TRACE_KERNELS = {k: f"{k}_kernel" for k in ("beaver_and", "ks_mask", "ks_combine",
+                                            "ks_step", "ks_level", "cone_step",
+                                            "ring_matmul", "unpack", "pack")}
+TRACE_KERNELS["pack_ring"] = "pack_kernel"      # one template serves both
+# timed online calls per plan and loop, after one warm-up call; the pool
+# holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
+# each request's served to the generator loop and to the replay in turn
 ONLINE_CALLS = 3
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
@@ -696,17 +714,122 @@ def resnet_setup():
     return cfg, params, plans, xs, want
 
 
+def _call(model, enc, mode, key, cc):
+    """One online call on the round loop ``mode`` (``HB_ROUND_LOOP``) with
+    the request key ``key``: host clock around work ended by
+    ``torch.cuda.synchronize()``, launch counters zeroed just before and
+    read just after, and the rounds and bytes it added to ``cc``."""
+    from repro_torch.kernels import ops
+
+    os.environ["HB_ROUND_LOOP"] = mode
+    r0, b0 = cc.n_rounds, cc.bytes_tx
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = model(enc, key=key)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    counts["pack_ring_masked"] = ops.pack_ring.masked
+    return {"outs": outs, "wall": wall, "counts": counts,
+            "rounds": cc.n_rounds - r0, "bytes": cc.bytes_tx - b0}
+
+
+def _check_call(name, run, sched, want, errs):
+    """Rounds and bytes equal to the schedule; finite logits of the right
+    shape; the exact plans' reveals within the tolerance."""
+    if (run["rounds"], run["bytes"]) != (sched.n_rounds, sched.bytes_tx):
+        raise AssertionError(f"{name}: measured {run['rounds']} rounds / "
+                             f"{run['bytes']} B != schedule {sched.n_rounds} / "
+                             f"{sched.bytes_tx}")
+    got = torch.cat([o.reveal() for o in run["outs"]])
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
+    errs.append(float((got - want).abs().max()))
+    if name.startswith("exact") and \
+            errs[-1] > ATOL + RTOL * float(want.abs().max()):
+        raise AssertionError(f"{name} plan: max error {errs[-1]} vs plaintext")
+
+
+def _same_shares(name, a, b, what):
+    if not all(torch.equal(x.data, y.data) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: {what}")
+
+
+def _profiled(fn, census=None):
+    """(busy s, span s, device ops, busy share, top) of one traced ``fn()``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, span_us, n_ops, top = trace_busy(prof, census)
+    return {"span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
+            "device_ops": n_ops, "device_busy_share": busy_us / span_us,
+            "top_device_ops_us": top}
+
+
+def host_profile(fn, top=8):
+    """One ``fn()`` under cProfile (which slows the Python-heavy parts
+    most): its host seconds and the ``top`` functions by own time,
+    [file:line(function), own s, calls]."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = sorted(([f"{os.path.basename(f)}:{line}({func})", own, calls]
+                   for (f, line, func), (_, calls, own, _, _) in stats.stats.items()),
+                  key=lambda r: -r[1])
+    return {"total_s": stats.total_tt, "top": rows[:top]}
+
+
+def replay_census(name, census, launches):
+    """The kernels a traced replay ran, by symbol (``TRACE_KERNELS``),
+    against the launches its capture counted; raises on a difference."""
+    want, got = {}, {}
+    for wrapper, symbol in TRACE_KERNELS.items():
+        want[symbol] = want.get(symbol, 0) + launches[wrapper]
+    # a symbol, demangled or not, never preceded by a letter (unpack_kernel
+    # holds pack_kernel)
+    pattern = re.compile(r"(?<![A-Za-z_])(" + "|".join(set(TRACE_KERNELS.values()))
+                         + ")")
+    for op, count in census.items():
+        m = pattern.search(op)
+        if m:
+            got[m.group(1)] = got.get(m.group(1), 0) + count
+    got = {s: got.get(s, 0) for s in want}
+    if got != want:
+        raise AssertionError(f"{name}: the traced replay ran {got}, its capture "
+                             f"counted {want}")
+    return got
+
+
 def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
                  profile=False):
-    """One plan's offline phase, warm-up and ``calls`` timed online calls
-    (host clock around work ended by ``torch.cuda.synchronize()``), each
-    checked: rounds and bytes equal to the schedule, the exact plans'
-    reveals within the tolerance, and (``expect``) exactly the path's
-    kernels, the dense adder's launches as its levels say and one unpack
-    per ReLU.  ``profile`` runs one more call under torch.profiler."""
+    """One plan's offline phase, then each online call twice, on the same
+    request key and the same triples (the provider rolled back between
+    them): on the generator loop (``HB_ROUND_LOOP=python``), then on the
+    captured replay (``scan``) where the tree has it.  The first pair warms
+    up (the replay's first call runs the generator loop and captures the
+    graph); ``calls`` timed pairs follow (host clock around work ended by
+    ``torch.cuda.synchronize()``).  Every call: rounds and bytes equal to
+    the schedule, the exact plans' reveals within the tolerance.  Eager
+    calls (``expect``): exactly the path's kernels, the adders' launches as
+    their levels say, one unpack and one masked pack_ring per ReLU.
+    Replays: shares equal to the eager call's, no launch counted on the
+    host, the graph's captured launches equal to the eager call's, a
+    result held across the next replay unchanged.  Then one replay (and
+    with ``profile`` one eager call) under torch.profiler, the replay's
+    kernels counted by name against its capture; the replay's input
+    refill and the eager key split timed alone."""
     from repro_torch import api
     from repro_torch.core import comm as comm_lib, prng
-    from repro_torch.kernels import ops
     from repro_torch.models import resnet
 
     cfg, params, _, xs, want = setup
@@ -715,7 +838,7 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         return resnet.apply(p, x, cfg, relu_fn=relu_fn)
 
     cc = comm_lib.CoalescingComm(comm_lib.SimComm())
-    requests = 1 + calls + int(profile)
+    requests = 1 + calls
     session = api.Session(key=0, comm=cc, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -723,86 +846,147 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
                     streams=STREAMS)
     torch.cuda.synchronize()
     offline_s = time.perf_counter() - t0
-    pool_bytes = session.provider.device_bytes()
+    provider = session.provider
+    pool_bytes = provider.device_bytes()
     model = api.compile(afn, params, cfg, plan, session)
+    replay = hasattr(model, "replay_stats")
     enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), x) for i, x in enumerate(xs)]
+    keys = [prng.PRNGKey(1000 + i, "cuda") for i in range(requests)]
     sched = plan.schedule(streams=STREAMS)
-    model(enc)                                          # warm-up, untimed
-    walls, errs, counts = [], [], None
-    for _ in range(calls):
-        r0, b0 = cc.n_rounds, cc.bytes_tx
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        outs = model(enc)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        counts, masked = ops.launch_counts(), ops.pack_ring.masked
-        launched = {k for k, v in counts.items() if v}
+    want_adder = None
+    if expect is not None:
+        want_adder = adder_launches(name)
+        want_adder["unpack"] = sum(sign_plane_launches(name).values())
+        want_adder["pack_ring"] = want_adder["pack_ring_masked"] = want_adder["unpack"]
+    eager, replays, errs, held = [], [], [], None
+    for i in range(requests):
+        token = provider.checkpoint()       # the last pair's is kept below
+        e = _call(model, enc, "python", keys[i], cc)
+        _check_call(name, e, sched, want, errs)
+        counts = e["counts"]
+        launched = {k for k, v in counts.items() if v and k != "pack_ring_masked"}
         if expect is not None and launched != expect:
             raise AssertionError(f"{name}: launched {sorted(launched)}, its path "
                                  f"runs {sorted(expect)}")
-        if expect is not None:
-            want_adder = adder_launches(name)
-            want_adder["unpack"] = sum(sign_plane_launches(name).values())
-            want_adder["pack_ring"] = want_adder["unpack"]
+        if want_adder is not None:
             got_adder = {k: counts[k] for k in want_adder}
             if got_adder != want_adder:
                 raise AssertionError(f"{name}: launched {got_adder}, its "
                                      f"levels and ReLUs say {want_adder}")
-            if masked != counts["pack_ring"]:
-                raise AssertionError(f"{name}: {masked} of {counts['pack_ring']} "
-                                     f"pack_ring launches took the A2B mask")
-        if (cc.n_rounds - r0, cc.bytes_tx - b0) != (sched.n_rounds, sched.bytes_tx):
-            raise AssertionError(
-                f"{name}: measured {cc.n_rounds - r0} rounds / {cc.bytes_tx - b0} "
-                f"B != schedule {sched.n_rounds} / {sched.bytes_tx}")
-        got = torch.cat([o.reveal() for o in outs])
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
-        errs.append(float((got - want).abs().max()))
-        if name.startswith("exact") and \
-                errs[-1] > ATOL + RTOL * float(want.abs().max()):
-            raise AssertionError(f"{name} plan: max error {errs[-1]} vs plaintext")
+        if i:
+            eager.append(e)
+        if not replay:
+            continue
+        provider.rollback(token)
+        r = _call(model, enc, "scan", keys[i], cc)
+        _check_call(name, r, sched, want, errs)
+        _same_shares(name, r["outs"], e["outs"], "replay shares differ from the "
+                     "eager call's")
+        stats = model.replay_stats(enc)
+        if stats is None or stats["launches"] != counts:
+            raise AssertionError(f"{name}: the captured replay holds "
+                                 f"{stats and stats['launches']}, the eager call "
+                                 f"launched {counts}")
+        if i == 0:
+            # the signature's first call: the generator loop, then the capture
+            if r["counts"] != {k: 2 * v for k, v in counts.items()}:
+                raise AssertionError(f"{name}: first scan call launched "
+                                     f"{r['counts']}, twice the eager call is "
+                                     f"{counts}")
+            continue
+        if any(r["counts"].values()):
+            raise AssertionError(f"{name}: a replay launched {r['counts']} from "
+                                 "the host")
+        if held is not None:
+            _same_shares(name, held[0], held[1], "a held replay result changed "
+                         "under the next replay")
+        held = (r["outs"], [type(o)(o.data.clone(), o.frac_bits) for o in r["outs"]])
+        replays.append(r)
+    os.environ["HB_ROUND_LOOP"] = "python"
+    counts = eager[-1]["counts"]
+    masked = counts.pop("pack_ring_masked")
     out = {"offline_s": offline_s, "offline_s_per_call": offline_s / requests,
            "pool_requests": requests, "pool_bytes": pool_bytes,
-           "online_s": walls, "online_median_s": statistics.median(walls),
-           "online_min_s": min(walls), "online_max_s": max(walls),
            "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
            "max_abs_err_vs_plaintext": max(errs), "launches": counts,
            "pack_ring_masked": masked}
-    if profile:
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            model(enc)
-            torch.cuda.synchronize()
-        busy_us, span_us, n_ops, top = trace_busy(prof)
-        out["profiled"] = {"span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
-                           "device_ops": n_ops, "device_busy_share": busy_us / span_us,
-                           "top_device_ops_us": top}
+    for loop, runs in (("eager", eager), ("replay", replays)):
+        if runs:
+            walls = [r["wall"] for r in runs]
+            out[loop] = {"online_s": walls, "online_median_s": statistics.median(walls),
+                         "online_min_s": min(walls), "online_max_s": max(walls)}
+    ea = out["eager"]
     print(f"main path {name}: offline {offline_s:.3f} s for {requests} calls "
           f"({offline_s / requests:.3f} s per call, pool {pool_bytes} B on the "
-          f"device); online per call ({STREAMS} requests) median "
-          f"{out['online_median_s']:.4f} s, min {out['online_min_s']:.4f}, max "
-          f"{out['online_max_s']:.4f} over {calls} warm calls; {sched.n_rounds} "
-          f"rounds, {sched.bytes_tx} B, launches {counts}, max |reveal - "
-          f"plaintext| {max(errs):.3g} (max |logit| {float(want.abs().max()):.3g})",
-          flush=True)
+          f"device); online per call ({STREAMS} requests) on the generator loop: "
+          f"median {ea['online_median_s']:.4f} s, min {ea['online_min_s']:.4f}, "
+          f"max {ea['online_max_s']:.4f} over {calls} warm calls; "
+          f"{sched.n_rounds} rounds, {sched.bytes_tx} B, launches {counts}, max "
+          f"|reveal - plaintext| {max(errs):.3g} (max |logit| "
+          f"{float(want.abs().max()):.3g})", flush=True)
+    last = keys[-1]
+    if replay:
+        stats = model.replay_stats(enc)
+        entry = model._replay_entry(enc)
+        srcs = [t.clone() for t in entry.statics]
+        refill_ms = statistics.median(_event_ms(lambda: entry.load(srcs), 7))
+        refill = _profiled(lambda: entry.load(srcs))
+        refill_bytes = sum(2 * t.numel() * t.element_size() for t in srcs)
+        del srcs
+        split_s = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prng.split(last, 256 * STREAMS)
+            torch.cuda.synchronize()
+            split_s.append(time.perf_counter() - t0)
+        census = {}
+        provider.rollback(token)
+        os.environ["HB_ROUND_LOOP"] = "scan"
+        traced = _profiled(lambda: model(enc, key=last), census)
+        traced["kernels_by_name"] = replay_census(name, census, stats["launches"])
+        provider.rollback(token)
+        host = host_profile(lambda: model(enc, key=last))
+        out["replay"].update({
+            "trace_s": stats["trace_s"], "compile_s": stats["compile_s"],
+            "captured_launches": stats["launches"], "refill_ms": refill_ms,
+            "refill_device_ops": refill["device_ops"], "refill_bytes": refill_bytes,
+            "refill_bound_ms": refill_bytes / HBM_BYTES_PER_S * 1e3,
+            "key_split_s": statistics.median(split_s), "profiled": traced,
+            "host_profile": host})
+        rp = out["replay"]
+        print(f"main path {name} on the captured replay: median "
+              f"{rp['online_median_s']:.4f} s, min {rp['online_min_s']:.4f}, max "
+              f"{rp['online_max_s']:.4f} over {calls} warm calls (shares equal "
+              f"the eager calls', counters the schedule, captured launches the "
+              f"eager call's); capture {rp['trace_s']:.3f} s, instantiation, "
+              f"upload and first replay {rp['compile_s']:.3f} s; input refill "
+              f"{refill_ms:.4f} ms on the device in {rp['refill_device_ops']} "
+              f"launches for {refill_bytes} B (bound {rp['refill_bound_ms']:.4f} "
+              f"ms); eager key split {1e3 * rp['key_split_s']:.4f} ms; one replay "
+              f"under the profiler: {traced['device_ops']} device ops busy "
+              f"{traced['device_busy_s']:.4f} s of a {traced['span_s']:.4f} s trace "
+              f"= {100 * traced['device_busy_share']:.1f}%, kernels by name "
+              f"{traced['kernels_by_name']}; one replay under cProfile: "
+              f"{host['total_s']:.4f} s of host time, most in {host['top']}",
+              flush=True)
     if profile:
-        pr = out["profiled"]
-        print(f"main path {name}, one online call under the profiler: "
-              f"{pr['device_ops']} device ops busy {pr['device_busy_s']:.4f} s of a "
-              f"{pr['span_s']:.4f} s trace = {100 * pr['device_busy_share']:.1f}%; "
-              f"most device time: {pr['top_device_ops_us']}", flush=True)
+        provider.rollback(token)
+        os.environ["HB_ROUND_LOOP"] = "python"
+        out["profiled"] = pr = _profiled(lambda: model(enc, key=last))
+        print(f"main path {name}, one online call on the generator loop under "
+              f"the profiler: {pr['device_ops']} device ops busy "
+              f"{pr['device_busy_s']:.4f} s of a {pr['span_s']:.4f} s trace = "
+              f"{100 * pr['device_busy_share']:.1f}%; most device time: "
+              f"{pr['top_device_ops_us']}", flush=True)
+    os.environ.pop("HB_ROUND_LOOP", None)
     return out
 
 
 def main_path_phase():
     """Full-width ResNet-18, 4 sibling streams, exact and reduced plans,
     each with the dense and the cone-pruned adder: offline pool, warm-up,
-    timed online calls."""
+    timed online calls on both round loops."""
     setup = resnet_setup()
     runs, launches = {}, {}
     for name, plan in setup[2].items():
@@ -900,11 +1084,12 @@ def merge_phase(flush):
     return out
 
 
-def trace_busy(prof):
+def trace_busy(prof, census=None):
     """(busy us, span us, device ops, top) of one profiler trace: the union
     of the device's kernel, memcpy and memset intervals, the span from the
     trace's first event to its last, and the 8 device-op names with the
-    most summed time ([name, us, count], the name cut to 60 characters)."""
+    most summed time ([name, us, count], the name cut to 60 characters).
+    ``census``, a dict, gets every device op's full name and count."""
     path = os.path.join(ROOT, "build", "profile_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
@@ -923,6 +1108,8 @@ def trace_busy(prof):
         rec = by_name.setdefault(str(e.get("name"))[:60], [0.0, 0])
         rec[0] += float(e.get("dur", 0))
         rec[1] += 1
+        if census is not None:
+            census[str(e.get("name"))] = census.get(str(e.get("name")), 0) + 1
     top = sorted(([n, us, c] for n, (us, c) in by_name.items()),
                  key=lambda r: -r[1])[:8]
     if not device:
@@ -995,24 +1182,20 @@ def stem_breakdown_phase():
     (t_triples, t_protocol), (c_triples, c_protocol) = (
         tuple(min(t[i] for t in parts[cone]) for i in range(2))
         for cone in (False, True))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     pool = triples()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        protocol(conv(), pool)
-        torch.cuda.synchronize()
-    busy_us, span_us, n_kernels, _ = trace_busy(prof)
+    pr = _profiled(lambda: protocol(conv(), pool))
     out = {"conv_s": t_conv, "triples_offline_s": t_triples,
            "protocol_online_s": t_protocol, "cone_triples_offline_s": c_triples,
            "cone_protocol_online_s": c_protocol,
-           "profiled_span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
-           "device_kernels": n_kernels, "device_busy_share": busy_us / span_us}
+           "profiled_span_s": pr["span_s"], "device_busy_s": pr["device_busy_s"],
+           "device_kernels": pr["device_ops"],
+           "device_busy_share": pr["device_busy_share"]}
     print(f"stem layer, 4 requests: conv {t_conv:.4f} s, triples offline "
           f"(pool) {t_triples:.4f} s, protocol online {t_protocol:.4f} s (cone "
           f"adder: triples {c_triples:.4f} s, protocol {c_protocol:.4f} s); "
-          f"online under the profiler: {n_kernels} device ops busy "
-          f"{busy_us / 1e6:.4f} s of a {span_us / 1e6:.4f} s trace = "
-          f"{100 * busy_us / span_us:.1f}%", flush=True)
+          f"online under the profiler: {pr['device_ops']} device ops busy "
+          f"{pr['device_busy_s']:.4f} s of a {pr['span_s']:.4f} s trace = "
+          f"{100 * pr['device_busy_share']:.1f}%", flush=True)
     return out
 
 

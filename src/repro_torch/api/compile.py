@@ -1,5 +1,5 @@
 """compile(): bind (model, Plan, Session) into a callable PrivateModel
-(twin of the reference's ``api/compile.py``, generator round loop only).
+(twin of the reference's ``api/compile.py``).
 
 The MPC forward of a model family is registered once
 (``register_mpc_forward``) as ``forward(params, tensors, cfg, relu_fn,
@@ -8,22 +8,132 @@ replays the Plan: every ReLU call draws its keys from the Session's PRNG
 stream and its triples from the Session's provider, and sibling streams
 share protocol rounds through ``relu_many``.  Keys are consumed in exactly
 the reference's order, so outputs are share-level bit-identical to it.
+
+Two round loops run the replay (``runtime/loop.py``): the generator loop,
+and, by default wherever the comm allows, the captured replay: one call's
+whole online phase captured once per stream signature as a CUDA graph,
+then replayed with each call's inputs, keys and triples copied into its
+input buffers.  Both give the same shares.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Union
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import errors
-from ..core import prng
+from ..core import beaver, comm as comm_lib, prng
 from ..core.mpc_tensor import MPCTensor, relu_many
+from ..kernels import ops
+from ..runtime import loop as loop_lib
 from .plan import Plan
 from .session import Session
 
 _MPC_FORWARDS: Dict[type, Callable] = {}
+
+# Captured whole-call replays, shared across PrivateModel instances: the
+# key pins the forward, the plan content (digest), the stream signature,
+# the structure and leaf shapes of (params, inputs, keys and triples) and
+# the device, so two models compiled from one plan reuse one graph (a
+# model with other weights of the same shapes too: the params are inputs).
+_REPLAY_CACHE: Dict = {}
+
+_TENSOR = "tensor"
+_FIELDS: Dict[type, Tuple[str, ...]] = {}      # a dataclass type's field names
+
+
+def _flatten(tree, leaves: List[torch.Tensor]):
+    """The hashable structure of ``tree``, its tensors appended to
+    ``leaves`` in order.  Dicts, lists, tuples and dataclasses are walked;
+    any other value (None, a number) stays in the structure."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return _TENSOR
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(v, leaves)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_flatten(v, leaves) for v in tree))
+    kind = type(tree)
+    names = _FIELDS.get(kind)
+    if names is None:
+        names = _FIELDS[kind] = (tuple(f.name for f in dataclasses.fields(kind))
+                                 if dataclasses.is_dataclass(kind) else ())
+    if names:
+        return (kind, tuple((n, _flatten(getattr(tree, n), leaves)) for n in names))
+    return ("const", tree)
+
+
+def _unflatten(spec, leaves: Iterator[torch.Tensor]):
+    """Inverse of ``_flatten``: the tree of ``spec`` over ``leaves``."""
+    if spec == _TENSOR:
+        return next(leaves)
+    kind, body = spec
+    if kind == "const":
+        return body
+    if kind is dict:
+        return {k: _unflatten(v, leaves) for k, v in body}
+    if kind in (list, tuple):
+        return kind(_unflatten(v, leaves) for v in body)
+    return kind(**{k: _unflatten(v, leaves) for k, v in body})
+
+
+def _cloned(tree):
+    """``tree`` with every tensor cloned."""
+    leaves: List[torch.Tensor] = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter([t.clone() for t in leaves]))
+
+
+@dataclasses.dataclass
+class _ReplayEntry:
+    """One captured replay: the input buffers it reads (``statics``, in
+    ``_flatten`` order of (params, input shares, per-call keys and
+    triples)), ``run`` (replays it over them and returns cloned outputs),
+    the private comm whose counters hold one call's round timeline, the
+    capture's cost split and the kernel launches it captured (the
+    wrappers' counters tick during the capture only; ``pack_ring_masked``
+    counts the masked ``pack_ring`` launches among them)."""
+
+    statics: List[torch.Tensor]
+    run: Callable[[], object]
+    comm: comm_lib.CoalescingComm
+    trace_s: float
+    compile_s: float
+    launches: Dict[str, int]
+
+    def __post_init__(self):
+        groups: Dict[torch.dtype, List[int]] = {}
+        for i, t in enumerate(self.statics):
+            groups.setdefault(t.dtype, []).append(i)
+        self._groups = [(idx, [self.statics[i] for i in idx])
+                        for idx in groups.values()]
+
+    def load(self, leaves: Sequence[torch.Tensor]) -> None:
+        """Refill the input buffers from ``leaves`` (same order, shapes and
+        dtypes): one ``torch._foreach_copy_`` per dtype, a few multi-tensor
+        launches on the card where one ``copy_`` per tensor would take
+        hundreds."""
+        for idx, dsts in self._groups:
+            torch._foreach_copy_(dsts, [leaves[i] for i in idx])
+
+    def __call__(self, leaves: Sequence[torch.Tensor]):
+        self.load(leaves)
+        return self.run()
+
+
+def replay_cache_stats() -> List[Dict]:
+    """Every captured replay built in this process: ``trace_s`` (the
+    capture pass: the forward run once on the host with every launch
+    recorded into the graph), ``compile_s`` (the graph's instantiation
+    and upload: ``capture_end``, then one replay of the first call's
+    inputs, checked against that call's eager result) and the fused round
+    count one replay carries.  On the CPU nothing is captured and both
+    times are 0."""
+    return [{"trace_s": e.trace_s, "compile_s": e.compile_s,
+             "n_rounds": e.comm.n_rounds} for e in _REPLAY_CACHE.values()]
 
 
 def register_mpc_forward(cfg_type: type, forward: Callable) -> None:
@@ -75,7 +185,8 @@ class PrivateModel:
     """A model compiled for private inference under a Plan + Session.
 
     ``__call__`` takes one MPCTensor or a sequence of sibling streams;
-    streams share protocol rounds via ``relu_many``.
+    streams share protocol rounds via ``relu_many``.  ``serve_step()``
+    gives the same replay as ``step(params, x, triples, key)``.
     """
 
     apply_fn: Optional[Callable]
@@ -85,6 +196,10 @@ class PrivateModel:
     session: Session
     mpc_forward: Callable
     auto_batch: bool = True
+    _step_cache: Dict = dataclasses.field(default_factory=dict, repr=False,
+                                          compare=False)
+    _layout_cache: Dict = dataclasses.field(default_factory=dict, repr=False,
+                                            compare=False)
 
     def encrypt(self, key: torch.Tensor, x_f) -> MPCTensor:
         """Secret-share a plaintext input on the session's device."""
@@ -119,32 +234,248 @@ class PrivateModel:
         return self._run_streams(tensors, [key_iter] * len(tensors),
                                  [provider] * len(tensors), comm, params)
 
-    def _run_streams(self, tensors: List[MPCTensor], key_iters: List,
-                     providers: List, comm, params,
-                     auto_batch: Optional[bool] = None):
-        """Replay with per-stream key iterators and providers: at every ReLU
-        call, stream i draws one key from ``key_iters[i]`` and one bundle
-        from ``providers[i]``."""
+    def _draw(self, key_iters: List, providers: List, g: int,
+              ns: Sequence[int]):
+        """One ReLU call's keys and triples, drawn as the generator loop
+        draws them: one key per stream, then one bundle per stream."""
+        width = self.plan.hb.layers[g].width
+        keys = tuple(next(key_iters[i]) for i in range(len(ns)))
+        tris = tuple(providers[i].relu_triples(n, width, cone=self.plan.cone)
+                     for i, n in enumerate(ns))
+        return keys, tris
+
+    def _forward(self, params, tensors, comm, auto_batch: bool, call_inputs):
+        """The registered forward over sibling streams: every ReLU call
+        runs ``relu_many`` on the keys and triples ``call_inputs(hs, g)``
+        gives it; zero-element streams pass through."""
         hb_layers = self.plan.hb.layers
         cone = self.plan.cone
-        if auto_batch is None:
-            auto_batch = self.auto_batch
 
         def _relu(hs: List[MPCTensor], g: int) -> List[MPCTensor]:
-            hb = hb_layers[g]
-            keys = [next(key_iters[i]) for i in range(len(hs))]
-            tris = [providers[i].relu_triples(math.prod(h.shape), hb.width,
-                                              cone=cone)
-                    for i, h in enumerate(hs)]
+            keys, tris = call_inputs(hs, g)
             outs = list(hs)
             live = [i for i, h in enumerate(hs) if math.prod(h.shape)]
             if live:
                 rets = relu_many([keys[i] for i in live], [hs[i] for i in live],
-                                 comm=comm, hbs=[hb] * len(live),
+                                 comm=comm, hbs=[hb_layers[g]] * len(live),
                                  triples_list=[tris[i] for i in live],
                                  cone=cone, auto_batch=auto_batch)
                 for j, i in enumerate(live):
                     outs[i] = rets[j]
             return outs
 
-        return self.mpc_forward(params, tensors, self.cfg, _relu, comm)
+        return self.mpc_forward(params, list(tensors), self.cfg, _relu, comm)
+
+    def _run_streams(self, tensors: List[MPCTensor], key_iters: List,
+                     providers: List, comm, params,
+                     auto_batch: Optional[bool] = None):
+        """Replay with per-stream key iterators and providers: at every ReLU
+        call, stream i draws one key from ``key_iters[i]`` and one bundle
+        from ``providers[i]``.  On ``HB_ROUND_LOOP=scan`` (the default) and
+        an eligible comm, the captured replay runs it."""
+        if auto_batch is None:
+            auto_batch = self.auto_batch
+        if (loop_lib.round_loop_mode() == "scan"
+                and loop_lib.compiled_eligible(comm)):
+            return self._run_streams_compiled(tensors, key_iters, providers,
+                                              comm, params, auto_batch)
+        return self._forward(
+            params, tensors, comm, auto_batch,
+            lambda hs, g: self._draw(key_iters, providers, g,
+                                     [math.prod(h.shape) for h in hs]))
+
+    # -- captured replay -------------------------------------------------------
+    def _stream_sig(self, tensors: Sequence[MPCTensor], auto_batch: bool):
+        return (auto_batch,) + tuple(
+            (tuple(t.shape), t.frac_bits, t.data.dtype, str(t.data.device))
+            for t in tensors)
+
+    def _relu_layout(self, tensors: Sequence[MPCTensor], auto_batch: bool):
+        """Per-ReLU-call (group, per-stream element counts) of one replay,
+        in call order, as the signature's first call recorded it; None
+        before that call.  The reference records it in an abstract pass;
+        the kernel wrappers here take only CPU or CUDA tensors, so the
+        first call runs the generator loop and records it, which also
+        builds every kernel at every shape the capture meets."""
+        return self._layout_cache.get(self._stream_sig(tensors, auto_batch))
+
+    def _plan_digest(self) -> str:
+        if "digest" not in self._layout_cache:
+            self._layout_cache["digest"] = self.plan.digest()
+        return self._layout_cache["digest"]
+
+    def _capture(self, spec, leaves: List[torch.Tensor], auto_batch: bool,
+                 first) -> _ReplayEntry:
+        """A new replay of the forward over input buffers shaped as
+        ``leaves`` (``spec``: their structure), loaded with this call's.
+        On CUDA the forward runs once under stream capture into a CUDA
+        graph, which is then instantiated and replayed once; on the CPU the
+        replay is the same forward run eagerly over the buffers, once here
+        and at every call.  Either way it runs on a private
+        ``CoalescingComm``, whose counters must equal the generator loop's
+        (``first``: that loop's outputs and comm for this call), and its
+        outputs must equal that loop's.  Any failure raises."""
+        statics = [torch.empty_like(t) for t in leaves]
+
+        def replay(comm):
+            params, tensors, payload = _unflatten(spec, iter(statics))
+            calls = iter(payload)
+            return self._forward(params, tensors, comm, auto_batch,
+                                 lambda hs, g: next(calls))
+
+        want, rec = first
+        cuda = bool(statics) and statics[0].device.type == "cuda"
+        cc = comm_lib.CoalescingComm()
+        before, masked = ops.launch_counts(), ops.pack_ring.masked
+        if cuda:
+            graph = torch.cuda.CUDAGraph()
+            out_leaves: List[torch.Tensor] = []
+            with torch.cuda.graph(graph):
+                t0 = time.perf_counter()
+                out_spec = _flatten(replay(cc), out_leaves)
+                t1 = time.perf_counter()
+
+            def run():
+                graph.replay()
+                return _unflatten(out_spec, iter([t.clone() for t in out_leaves]))
+        else:
+            def run():
+                return _cloned(replay(comm_lib.CoalescingComm()))
+        entry = _ReplayEntry(statics=statics, run=run, comm=rec, trace_s=0.0,
+                             compile_s=0.0, launches={})
+        entry.load(leaves)
+        if cuda:
+            got = run()         # replays count nothing: the delta is the capture's
+            torch.cuda.synchronize()
+            entry.trace_s, entry.compile_s = t1 - t0, time.perf_counter() - t1
+        else:
+            got = _cloned(replay(cc))
+        entry.launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        entry.launches["pack_ring_masked"] = ops.pack_ring.masked - masked
+        if (cc.n_rounds, cc.round_bytes, cc.round_parts) != \
+                (rec.n_rounds, rec.round_bytes, rec.round_parts):
+            raise RuntimeError("captured replay: its round timeline differs from "
+                               "the generator loop's")
+        got_leaves: List[torch.Tensor] = []
+        want_leaves: List[torch.Tensor] = []
+        if _flatten(got, got_leaves) != _flatten(want, want_leaves) or not all(
+                torch.equal(a, b) for a, b in zip(got_leaves, want_leaves)):
+            raise RuntimeError("captured replay: its first run differs from the "
+                               "generator loop's outputs")
+        return entry
+
+    def _compiled_replay(self, sig, auto_batch: bool, params, tensors, payload,
+                         first=None):
+        """The captured replay for this call's structure, built on a miss,
+        and this call's outputs: ``first``'s (the generator loop's outputs
+        and comm, when this call already ran it) or the replay's.
+
+        Keys and triples enter as inputs, copied into the replay's buffers
+        at every call, never baked in; so do the params, so a model with
+        other weights of the same shapes reuses the entry.  Everything that
+        changes what is captured is in the cache key: the forward, the plan
+        digest, the stream signature, the structure and leaf shapes and
+        dtypes of (params, inputs, payload), the device."""
+        leaves: List[torch.Tensor] = []
+        spec = _flatten((params, tuple(tensors), tuple(payload)), leaves)
+        device = tensors[0].data.device if tensors else self.session.device
+        key = (self.mpc_forward, self._plan_digest(), sig, auto_batch, spec,
+               tuple((t.shape, t.dtype) for t in leaves), str(device))
+        entry = _REPLAY_CACHE.get(key)
+        if entry is None:
+            if first is None:
+                # a params or payload structure not run yet: run it on the
+                # generator loop first, as a signature's first call does
+                rec, calls = comm_lib.CoalescingComm(), iter(payload)
+                first = (self._forward(params, tensors, rec, auto_batch,
+                                       lambda hs, g: next(calls)), rec)
+            entry = _REPLAY_CACHE[key] = self._capture(spec, leaves, auto_batch,
+                                                       first)
+        return entry, (first[0] if first is not None else entry(leaves))
+
+    def _run_streams_compiled(self, tensors: List[MPCTensor], key_iters,
+                              providers, comm, params, auto_batch: bool):
+        """``_run_streams`` on the captured replay.
+
+        Same contract, same share-level outputs: stream i draws one key
+        from ``key_iters[i]`` and one provider bundle per ReLU call in call
+        order, all before the replay runs (so triple metering, pool
+        positions and ``checkpoint``/``rollback`` behave as on the
+        generator loop), then one replay runs the whole online phase.  A
+        signature's first call runs the generator loop, drawing as it goes,
+        to record the layout; the capture follows it.  The caller's
+        ``CoalescingComm`` counters advance by the recorded timeline."""
+        sig = self._stream_sig(tensors, auto_batch)
+        layout = self._relu_layout(tensors, auto_batch)
+        first = None
+        if layout is None:
+            record: List = []
+            rec = comm_lib.CoalescingComm()
+
+            def draw(hs, g):
+                ns = tuple(math.prod(h.shape) for h in hs)
+                record.append((g, ns, self._draw(key_iters, providers, g, ns)))
+                return record[-1][2]
+
+            first = (self._forward(params, tensors, rec, auto_batch, draw), rec)
+            self._layout_cache[sig] = tuple((g, ns) for g, ns, _ in record)
+            payload = [inputs for _, _, inputs in record]
+        else:
+            payload = [self._draw(key_iters, providers, g, ns) for g, ns in layout]
+        entry, outs = self._compiled_replay(sig, auto_batch, params, tensors,
+                                            payload, first)
+        if isinstance(comm, comm_lib.CoalescingComm):
+            comm.replay_counters(entry.comm.n_rounds, list(entry.comm.round_bytes),
+                                 list(entry.comm.round_parts))
+        return outs
+
+    def _replay_entry(self, tensors: Sequence[MPCTensor],
+                      auto_batch: Optional[bool] = None) -> Optional[_ReplayEntry]:
+        if auto_batch is None:
+            auto_batch = self.auto_batch
+        sig = self._stream_sig(list(tensors), auto_batch)
+        for key, entry in _REPLAY_CACHE.items():
+            if key[0] is self.mpc_forward and key[1] == self._plan_digest() \
+                    and key[2] == sig:
+                return entry
+        return None
+
+    def replay_stats(self, tensors: Sequence[MPCTensor],
+                     auto_batch: Optional[bool] = None) -> Optional[Dict]:
+        """The captured replay's cost split (see ``replay_cache_stats``),
+        round count and captured kernel launches for this stream
+        signature, if one has been built."""
+        entry = self._replay_entry(tensors, auto_batch)
+        if entry is None:
+            return None
+        return {"trace_s": entry.trace_s, "compile_s": entry.compile_s,
+                "n_rounds": entry.comm.n_rounds, "launches": dict(entry.launches)}
+
+    # -- serving step -----------------------------------------------------------
+    def serve_step(self, mesh=None) -> Callable:
+        """step(params, x, triples, key) -> x_out: the replay of one input
+        ``x`` (the int64 (2, B, ...) share tensor), on the session's comm,
+        with ``triples`` (one bundle or None per ReLU call, see
+        ``Plan.triple_specs``) as the pool, or the session's provider when
+        None.  A mesh (two-party device execution) is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "serve_step(mesh): two-party device execution is not ported "
+                "yet (ROADMAP queue 1, item 8)")
+
+        def step(params, x, triples, key):
+            provider = (beaver.TriplePool(triples) if triples is not None
+                        else self.session.provider)
+            return self._run([MPCTensor(x)], key, self.session.comm, provider,
+                             params)[0].data
+
+        return step
+
+    def jit_step(self, mesh=None) -> Callable:
+        """``serve_step`` built once per mesh.  On the default ``scan``
+        round loop (``runtime/loop.py``) its inner replay runs through the
+        cached captured graph: providers draw outside it, and the online
+        phase is one graph replay."""
+        if mesh not in self._step_cache:
+            self._step_cache[mesh] = self.serve_step(mesh)
+        return self._step_cache[mesh]

@@ -147,6 +147,16 @@ class CoalescingComm:
         h = self.enqueue(x)
         return self.flush()[h]
 
+    def replay_counters(self, n_rounds: int, round_bytes: List[int],
+                        round_parts: List[int]) -> None:
+        """Merge another CoalescingComm's recorded timeline into this one.
+        The captured replay (``api/compile.py``) records onto a private
+        comm whose counters fill once, during the capture; each replay
+        merges them into the caller's comm, so accounting is unchanged."""
+        self.n_rounds += n_rounds
+        self.round_bytes.extend(round_bytes)
+        self.round_parts.extend(round_parts)
+
     def party_is(self, p: int, template: torch.Tensor) -> torch.Tensor:
         return self.base.party_is(p, template)
 

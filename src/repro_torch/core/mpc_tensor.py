@@ -28,6 +28,18 @@ def encode_weights(w_f, frac_bits: int = fixed.DEFAULT_FRAC_BITS,
     return torch.round(w * (2.0 ** frac_bits)).to(torch.int32)
 
 
+def _encode_host_scalar(c_f, frac_bits: int) -> Optional[int]:
+    """A public constant given as a host number (Python or numpy scalar),
+    encoded on the host exactly as ``encode_weights`` encodes it (float32
+    product, round half to even, int32); None for a tensor.  A host number
+    never becomes a device tensor by a copy from host memory, which a
+    captured CUDA graph does not allow."""
+    if isinstance(c_f, torch.Tensor) or np.ndim(c_f) != 0:
+        return None
+    enc = np.round(np.float32(c_f) * np.float32(2.0 ** frac_bits))
+    return int(enc.astype(np.int32))
+
+
 @dataclasses.dataclass(frozen=True)
 class MPCTensor:
     data: torch.Tensor            # int64 ring shares, party dim leading
@@ -66,8 +78,12 @@ class MPCTensor:
     def add_public(self, b_f, comm=None) -> "MPCTensor":
         """Add a public constant: only party 0 adds it to its share."""
         comm = comm or comm_lib.SimComm()
-        b = torch.as_tensor(b_f, dtype=torch.float32, device=self.device)
-        enc = fixed.encode(torch.broadcast_to(b, self.shape), self.frac_bits)
+        v = _encode_host_scalar(b_f, self.frac_bits)
+        if v is not None:
+            enc = torch.full(self.shape, v, dtype=torch.int64, device=self.device)
+        else:
+            b = torch.as_tensor(b_f, dtype=torch.float32, device=self.device)
+            enc = fixed.encode(torch.broadcast_to(b, self.shape), self.frac_bits)
         p0 = comm.party_is(0, self.data)
         return MPCTensor(self.data + torch.where(p0, enc, torch.zeros_like(enc)),
                          self.frac_bits)
@@ -79,8 +95,12 @@ class MPCTensor:
         return MPCTensor(ring.rshift_arith(self.data, n), self.frac_bits)
 
     def mul_public(self, c_f) -> "MPCTensor":
-        w = encode_weights(c_f, self.frac_bits, self.device)
-        prod = self.data * ring.from_int32(torch.broadcast_to(w, self.shape))
+        v = _encode_host_scalar(c_f, self.frac_bits)
+        if v is not None:
+            prod = self.data * v
+        else:
+            w = encode_weights(c_f, self.frac_bits, self.device)
+            prod = self.data * ring.from_int32(torch.broadcast_to(w, self.shape))
         return MPCTensor(prod, self.frac_bits).truncate()
 
     def matmul_public(self, w_f) -> "MPCTensor":

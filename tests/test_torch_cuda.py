@@ -425,3 +425,70 @@ def test_cuda_cone_relu_equals_cpu():
         assert (counts["cone_step"], counts["beaver_and"], counts["ks_level"]) == \
             (1 + len(gmw._cone_levels(k - m)), 0, 0)
         assert torch.equal(outs["cuda"].cpu(), outs["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan_name", ["exact", "reduced-cone"])
+def test_cuda_graph_replay_equals_eager_and_cpu(plan_name, monkeypatch):
+    """RESNET_SMOKE, 2 sibling streams, an offline pool: the captured
+    replay (``HB_ROUND_LOOP=scan``: the signature's first call runs the
+    generator loop and captures; then two replays on other inputs) equals
+    the generator loop on the card and on the CPU bit for bit; a replay
+    launches nothing from the host, its graph holds the eager call's
+    launches, its replayed counters equal the schedule, and a result held
+    across the next replay is unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import api
+    from repro_torch.configs import RESNET_SMOKE
+    from repro_torch.core import comm, prng
+    from repro_torch.models import resnet
+
+    plan = resnet.trace(resnet.init(RESNET_SMOKE, 0, "cpu"), RESNET_SMOKE, 1, 8,
+                        cone=plan_name.endswith("cone"))
+    if plan_name.startswith("reduced"):
+        plan = plan.with_hb(api.HBConfig(
+            (api.HBLayer(k=21, m=13),) * (plan.n_groups - 1)
+            + (api.HBLayer(k=13, m=13),), plan.group_elements))
+    gen = torch.Generator().manual_seed(11)
+    inputs = [[torch.rand((1, 3, 8, 8), generator=gen) * 2 - 1 for _ in range(2)]
+              for _ in range(3)]
+    sched = plan.schedule(streams=2)
+
+    def run(dev, mode):
+        monkeypatch.setenv("HB_ROUND_LOOP", mode)
+        cc = comm.CoalescingComm()
+        session = api.Session(key=3, comm=cc, device=dev).offline(
+            prng.PRNGKey(9, dev), plan, requests=3, streams=2)
+        model = api.compile(None, resnet.init(RESNET_SMOKE, 0, dev), RESNET_SMOKE,
+                            plan, session)
+        calls = []
+        for c, xs in enumerate(inputs):
+            X = [model.encrypt(prng.PRNGKey(20 + 2 * c + i, dev), x)
+                 for i, x in enumerate(xs)]
+            r0, b0 = cc.n_rounds, cc.bytes_tx
+            ops.reset_launches()
+            outs = model(X)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            counts["pack_ring_masked"] = ops.pack_ring.masked
+            calls.append({"outs": outs, "held": [o.data.clone() for o in outs],
+                          "counts": counts,
+                          "comm": (cc.n_rounds - r0, cc.bytes_tx - b0)})
+        return model, X, calls
+
+    _, _, cpu = run("cpu", "python")
+    _, _, eager = run("cuda", "python")
+    model, X, replay = run("cuda", "scan")
+    assert model.replay_stats(X)["launches"] == eager[1]["counts"]
+    assert replay[0]["counts"] == {k: 2 * v for k, v in eager[0]["counts"].items()}
+    for c, (want, got, mine) in enumerate(zip(cpu, eager, replay)):
+        assert mine["comm"] == got["comm"] == (sched.n_rounds, sched.bytes_tx)
+        if c:
+            assert not any(mine["counts"].values())
+        for w, g, r, h in zip(want["outs"], got["outs"], mine["outs"], mine["held"]):
+            assert torch.equal(g.data.cpu(), w.data)
+            assert torch.equal(r.data, g.data)
+            assert torch.equal(r.data, h)     # unchanged by the later replays
+    assert not torch.equal(replay[1]["outs"][0].data, replay[2]["outs"][0].data)

@@ -241,6 +241,31 @@ def test_mpc_tensor_ops_bit_identical():
     np.testing.assert_allclose(pairs[3][1].reveal_np(), np.maximum(x, 0), atol=2e-4)
 
 
+@pytest.mark.parametrize("c", [0.75, 1.0 / 3.0, np.float32(-0.1), 2, np.float64(1e-3)],
+                         ids=["float", "third", "np.float32", "int", "np.float64"])
+def test_public_host_scalars_bit_identical(c):
+    """A public constant given as a host number is encoded on the host (no
+    copy from host memory, which a captured CUDA graph refuses), with the
+    same shares as the device-tensor route and the reference: mul_public
+    and add_public by c, avg_pool and global_avg_pool (which multiply by
+    1 / window^2 and 1 / (h w))."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-2, 2, (1, 4, 6, 6)).astype(np.float32)
+    jx = jmpc.MPCTensor.from_plain(jax.random.PRNGKey(6), jax.numpy.asarray(x))
+    tx = tmpc.MPCTensor.from_plain(prng.PRNGKey(6, "cpu"), torch.from_numpy(x))
+    tc = torch.tensor(np.float32(c))
+    pairs = [(jx.mul_public(c), tx.mul_public(c), tx.mul_public(tc)),
+             (jx.add_public(c), tx.add_public(c), tx.add_public(tc)),
+             (jx.avg_pool(3), tx.avg_pool(3), None),
+             (jx.global_avg_pool(), tx.global_avg_pool(), None)]
+    for j, t, via_tensor in pairs:
+        lo, hi = tring.to_limbs(t.data)
+        np.testing.assert_array_equal(lo, np.asarray(j.data.lo))
+        np.testing.assert_array_equal(hi, np.asarray(j.data.hi))
+        if via_tensor is not None:
+            assert torch.equal(t.data, via_tensor.data)
+
+
 def test_session_keys_match_reference():
     """next_key walks the same stream; request_key is fold_in(seed, id)."""
     js, ts = japi.Session(key=7), tapi.Session(key=7, device="cpu")
@@ -288,6 +313,7 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
+    assert ROOT / "src" / "repro_torch" / "runtime" / "loop.py" in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

@@ -41,7 +41,8 @@ against its plain version.
 ``--walls`` also times the online wall of the dense plans on the tree (or
 of the plans named, e.g. ``--walls exact-cone,reduced-cone``), as
 ``chip_smoke.py`` does (pool made beforehand, one warm-up call, the median
-of ``chip_smoke.ONLINE_CALLS`` calls; rounds, bytes and exact reveals
+of ``chip_smoke.ONLINE_CALLS`` calls, on the generator loop and, where the
+tree has it, on the captured replay; rounds, bytes and exact reveals
 checked, the kernel set not, so that a tree with the per-level route runs
 too); ``--profile`` runs one more call of each exact plan among them under
 torch.profiler (device ops and busy share).  The last line of the output

@@ -25,14 +25,24 @@ Phases (any failure raises, and the script exits non-zero):
    at w = 8's last level (the sign plane), each beside its bound
    (``cone_step_bytes``); ring_matmul at all 12 (M, K, N) the main
    path gives it, with full-range int32 weights, and its sum per main-path
-   call (launches x ms) beside the card's bound; read the ring_matmul
-   kernel's tensor-core (IMMA) and IMAD counts from its SASS and its
-   registers and spills from ptxas; unpack at the four sign-plane shapes
+   call (launches x ms) beside the card's bound; read the ring_matmul and
+   ring_matmul_ss kernels' tensor-core (IMMA) and IMAD counts from their
+   SASS and their registers and spills from ptxas; unpack at the four sign-plane shapes
    (``SIGN_PLANES``) with its sum per main-path call beside the bound,
    at the ragged merge's shape and at w = 8 and 32; pack_ring with the A2B
    mask (the main path's form) at its seven main-path shapes
    (``PACK_RING_SHAPES``) with its sum per main-path call beside the
-   bound, and unmasked at the stem's (64, 0) and (21, 13);
+   bound, and unmasked at the stem's (64, 0) and (21, 13); then the LM
+   path's shapes, read from its two plans (``lm_shape_launches``): the
+   dense adder (beaver_and in both forms, ks_mask, ks_combine, ks_step at
+   every level's shift) at every width of either plan (64, 22, 16) over
+   every word count (the 2 streams' merged E / 32), pack_ring (masked) at
+   each (k, m, E), unpack at each sign plane, ring_matmul at its 4 shapes
+   (``LM_RING_MATMUL_SHAPES``) and ring_matmul_ss (the secret x secret ring
+   matmul) at each product, each kernel's sum per LM call beside its bound;
+   ring_matmul_ss also at a longer attention and at K = 16 512, past its
+   fold (``RING_MATMUL_SS_OTHER_SHAPES``), with 36 x ``torch._int_mm`` as
+   a yardstick where that takes the shape;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
@@ -63,15 +73,37 @@ Phases (any failure raises, and the script exits non-zero):
    kernels counted by name against its capture) and one under cProfile
    (the host's time by function); one exact call on the generator loop
    is profiled too;
-5. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
+5. LM path: Qwen1.5-0.5B at full width (``qwen1.5-0.5b``: d_model 1024,
+   16 heads, d_ff 2816, vocab 151 936, QKV bias, gated SiLU MLP), depth cut
+   to ``LM_LAYERS`` = 2, seeded random float32 weights, ``LM_STREAMS`` = 2
+   requests of ``LM_SEQ`` = 8 embedded tokens (hidden states N(0, 1) x 0.5)
+   as sibling streams through ``api.compile`` and ``PrivateModel.__call__``,
+   under two plans: exact (every ReLU group (64, 0)) and reduced ((22, 0)
+   on the attention-score groups, (22, 6) on the PWL groups).  Per plan:
+   the ReLU triple pool from ``Session.offline`` before any timer (product
+   triples stay inline, as in the reference); one untimed warm-up call,
+   then ``ONLINE_CALLS`` timed calls on the generator loop (a plan with
+   Beaver opens never runs on the captured replay); every call's rounds
+   and bytes equal to ``plan.schedule(streams=2)`` and to ``LM_SCHEDULE``,
+   exactly the path's kernels (``PATH_KERNELS``) as often as its plan
+   says (``lm_shape_launches``), the exact plan's logits within the tolerance
+   of the plaintext twin (``lm.mpc_reference``, float32 on the card); then
+   the last call again with ``HB_ROUND_LOOP=scan`` (pool rolled back) must
+   give the same shares and capture nothing, and one call runs under
+   torch.profiler (busy share, top device ops); then each of the path's
+   ReLU calls at full width (one per (k, m, n) of either plan:
+   ``gmw.relu_many`` on the 2 streams) must launch exactly the ReLU's
+   kernels and equal the same call on the CPU bit for bit
+   (``lm_relu_phase``: the reduced plan's logits are only reported);
+6. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
    (not a multiple of 32, so their triples merge at the bit level, through
    unpack and pack), dense at (64, 0) and with the cone at (21, 13), each
    launching exactly its ``PATH_KERNELS`` and equal bit for bit to the
    same call on the CPU with the plain versions;
-6. merge: ``beaver.concat_relu_triples`` on the stem's 4 streams (exact,
+7. merge: ``beaver.concat_relu_triples`` on the stem's 4 streams (exact,
    dense and cone) by the word route and by the bit route (the ragged
    case's), timed both ways and required ``torch.equal``;
-7. stem breakdown: the exact plan's stem layer for 4 requests timed by
+8. stem breakdown: the exact plan's stem layer for 4 requests timed by
    part (conv; the triples' offline generation into a pool; the online
    protocol from the pool; the adder dense and cone-pruned), and the
    device's busy share of one traced online run of it (conv + protocol).
@@ -105,6 +137,8 @@ INT8_OPS_PER_S = 1979e12
 # note in csrc/ring_matmul.cu).
 PLANE_PRODUCTS = 26
 ISSUED_PLANE_PRODUCTS = 30
+# ring_matmul_ss: both operands' 8 raw bytes, shifts i + j < 8
+SS_PLANE_PRODUCTS = 36
 
 STREAMS = 4
 # ResNet-18's ReLUs by group: elements per request and ReLUs per call (the
@@ -134,13 +168,17 @@ PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "reduced": _RELU | {"ring_matmul"} | _DENSE,
                 "exact-cone": _RELU | {"ring_matmul"} | _CONE,
                 "reduced-cone": _RELU | {"ring_matmul"} | _CONE,
+                "lm-exact": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
+                "lm-reduced": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
+                "lm-relu": _RELU | _DENSE,
                 "ragged-merge": _RELU | {"pack"} | _DENSE,
                 "ragged-merge-cone": _RELU | {"pack"} | _CONE}
 # each wrapper's kernel, by its symbol in a profiler trace (a captured
 # replay's launches are counted there: the wrappers' counters do not tick)
 TRACE_KERNELS = {k: f"{k}_kernel" for k in ("beaver_and", "ks_mask", "ks_combine",
                                             "ks_step", "ks_level", "cone_step",
-                                            "ring_matmul", "unpack", "pack")}
+                                            "ring_matmul", "ring_matmul_ss",
+                                            "unpack", "pack")}
 TRACE_KERNELS["pack_ring"] = "pack_kernel"      # one template serves both
 # timed online calls per plan and loop, after one warm-up call; the pool
 # holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
@@ -149,6 +187,22 @@ ONLINE_CALLS = 3
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
+
+# The LM path: Qwen1.5-0.5B at full width, depth cut to 2 layers, 2
+# requests of 8 tokens as sibling streams, and each plan's fused rounds and
+# bytes (``plan.schedule(streams=2)``, also checked against it)
+LM_ARCH, LM_LAYERS, LM_SEQ, LM_STREAMS = "qwen1.5-0.5b", 2, 8, 2
+LM_SCHEDULE = {"lm-exact": (46, 740753408), "lm-reduced": (40, 210809856)}
+# ring_matmul on the LM path, (M, K, N, launches per call): M = 2 parties x
+# 8 tokens; per layer and stream the q, k, v, o projections, up and gate,
+# down; the lm_head once per stream
+LM_RING_MATMUL_SHAPES = ((16, 1024, 1024, 16), (16, 1024, 2816, 8),
+                         (16, 2816, 1024, 4), (16, 1024, 151936, 2))
+# ring_matmul_ss's shapes (B, M, K, N) off the LM path: a longer attention
+# (512 tokens, 16 heads) and K past the kernel's 4096 fold; its LM shapes
+# and launches are read from the plans (``lm_shape_launches``)
+RING_MATMUL_SS_OTHER_SHAPES = ((16, 512, 64, 512), (16, 512, 512, 64),
+                               (1, 64, 16512, 64))
 
 
 def nvidia_smi() -> str:
@@ -249,22 +303,31 @@ def timed_record(into, flush, name, source, replaces, fn, plain, bytes_moved,
 
 
 def sass_census() -> dict:
-    """Tensor-core and IMAD instructions in the compiled ring_matmul
-    kernel, read from its SASS (``cuobjdump -sass``; a static count,
-    prologue and epilogue included), and its registers and spills from
-    ptxas's ``-v`` report (its shared memory is dynamic: ``kSmem`` in the
-    source).  Fails if it has no IMMA or spills."""
+    """Tensor-core and IMAD instructions in the compiled ring_matmul and
+    ring_matmul_ss kernels, read from their SASS (``cuobjdump -sass``; a
+    static count, prologue and epilogue included), and their registers and
+    spills from ptxas's ``-v`` report (ring_matmul's shared memory is
+    dynamic: ``kSmem`` in the source).  Fails if one has no IMMA or
+    spills."""
+    out = {}
+    for source, kernel in (("ring_matmul.cu", "ring_matmul_kernel"),
+                           ("ring_matmul_ss.cu", "ring_matmul_ss_kernel")):
+        out.update(_sass_census(source, kernel))
+    return out
+
+
+def _sass_census(source: str, kernel: str) -> dict:
     import re
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    lib = build.build()["ring_matmul.cu"]
+    lib = build.build()[source]
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     out = {}
     for body in sass.split("Function :")[1:]:
         name = body.splitlines()[0].strip()
-        if "ring_matmul_kernel" not in name:
+        if kernel not in name:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
                          body)
@@ -279,8 +342,8 @@ def sass_census() -> dict:
         if imma == 0:
             raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
     if not out:
-        raise AssertionError("no ring_matmul kernel in the SASS")
-    ptxas = build.build_log("ring_matmul.cu")
+        raise AssertionError(f"no {kernel} in the SASS")
+    ptxas = build.build_log(source)
     for name, rec in out.items():
         i = ptxas.find(f"Function properties for {name}")
         report = ptxas[i:].splitlines()[1:3] if i >= 0 else []
@@ -289,7 +352,7 @@ def sass_census() -> dict:
         if not report or any(spills):
             raise AssertionError(f"{name}: ptxas reports spills or nothing: "
                                  f"{rec['ptxas']!r}")
-        print(f"ring_matmul SASS {name}: {rec['instructions']} instructions, "
+        print(f"{kernel} SASS {name}: {rec['instructions']} instructions, "
               f"tensor-core {rec['tensor_core']}, IMAD {rec['imad']} "
               f"{rec['by_op']}; ptxas: {rec['ptxas']}", flush=True)
     return out
@@ -312,17 +375,18 @@ def ring_matmul_bound_s(m: int, k: int, n: int):
             PLANE_PRODUCTS * 2 * m * k * n / INT8_OPS_PER_S)
 
 
-def int_mm_ms(m: int, k: int, n: int, gen):
+def int_mm_ms(m: int, k: int, n: int, gen, planes: int = ISSUED_PLANE_PRODUCTS,
+              batch: int = 1):
     """Yardstick of the tensor-core part: one int8 (M, K) @ (K, N) product
-    through ``torch._int_mm`` (cuBLASLt), hot, times the 30 the kernel
-    issues, where it takes the shape; None where it does not.  The port
-    never calls it."""
+    through ``torch._int_mm`` (cuBLASLt), hot, times the ``planes`` plane
+    products the kernel issues and the ``batch`` cells, where it takes the
+    shape; None where it does not.  The port never calls it."""
     if m <= 16 or k % 8 or n % 8:
         return None
     a = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
     b = torch.randint(-128, 128, (n, k), generator=gen, dtype=torch.int8).cuda().t()
     try:
-        return ISSUED_PLANE_PRODUCTS * _graph_ms(lambda: torch._int_mm(a, b), 10, 7) / 10
+        return planes * batch * _graph_ms(lambda: torch._int_mm(a, b), 10, 7) / 10
     except RuntimeError as err:
         print(f"torch._int_mm refuses M={m} K={k} N={n}: {err}", flush=True)
         return None
@@ -335,7 +399,9 @@ def ring_matmul_phase(record, gen) -> list:
     from repro_torch.kernels import ops, ref
 
     out = []
-    for m, k, n, per_call in RING_MATMUL_SHAPES + ((STREAMS * 2048, 576, 64, 0),):
+    lm_shapes = tuple((m, k, n, 0) for m, k, n, _ in LM_RING_MATMUL_SHAPES)
+    for m, k, n, per_call in (RING_MATMUL_SHAPES + ((STREAMS * 2048, 576, 64, 0),)
+                              + lm_shapes):
         x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
                           dtype=torch.int64)
         x[0, :3] = torch.tensor([0, -1, -0x7F7F7F7F7F7F7F80])[:k]
@@ -351,21 +417,63 @@ def ring_matmul_phase(record, gen) -> list:
                      bytes_s * HBM_BYTES_PER_S, ops_s=ops_s,
                      shape=f"M={m} K={k} N={n}")
         row["per_call"] = per_call
+        if (m, k, n, per_call) in lm_shapes:
+            row["path"], row["lm_shape"] = "lm-exact", (m, k, n)
         row["int_mm_x30_ms"] = int_mm_ms(m, k, n, gen)
         if row["int_mm_x30_ms"] is not None:
             print(f"  yardstick: 30 x torch._int_mm at M={m} K={k} N={n}: "
                   f"{row['int_mm_x30_ms']:.4f} ms hot", flush=True)
         out.append(row)
-    main = [r for r in out if r["per_call"]]
-    sums = {key: sum(r["per_call"] * r[key] for r in main)
-            for key in ("ms", "hot_ms", "eager_call_ms", "bound_ms")}
-    print(f"ring_matmul per main-path call ({sum(r['per_call'] for r in main)} "
-          f"launches): {sums['ms']:.4f} ms from DRAM, {sums['hot_ms']:.4f} ms "
-          f"from L2, {sums['eager_call_ms']:.4f} ms eager; card bound "
+    main = {(m, k, n): r for (m, k, n, c), r in zip(RING_MATMUL_SHAPES, out)}
+    sums = call_sums(main, {(m, k, n): c for m, k, n, c in RING_MATMUL_SHAPES})
+    print(f"ring_matmul per main-path call ({sums['launches']} launches): "
+          f"{sums['ms']:.4f} ms from DRAM, {sums['hot_ms']:.4f} ms from L2, "
+          f"{sums['eager_call_ms']:.4f} ms eager; card bound "
           f"{sums['bound_ms']:.4f} ms ({100 * sums['bound_ms'] / sums['ms']:.1f}%)",
           flush=True)
     for r in out:
-        r["per_call_sums"] = sums
+        if "lm_shape" not in r:
+            r["per_call_sums"] = sums
+    return out
+
+
+def ring_matmul_ss_bound_s(b: int, m: int, k: int, n: int):
+    """(bytes s, operations s): x, y read once and the output written once
+    over the memory rate; the 36 byte-plane products over the int8 rate."""
+    return (8 * b * (m * k + k * n + m * n) / HBM_BYTES_PER_S,
+            SS_PLANE_PRODUCTS * 2 * b * m * k * n / INT8_OPS_PER_S)
+
+
+def ring_matmul_ss_phase(record, gen, lm_shapes) -> list:
+    """ring_matmul_ss at the LM path's ``lm_shapes`` (B, M, K, N) and at
+    ``RING_MATMUL_SS_OTHER_SHAPES`` against its plain version
+    (``torch.equal``), full-range values (bytes 0x00, 0x80, 0xFF among
+    them); returns the records (the LM ones keyed ``lm_shape``)."""
+    from repro_torch.kernels import ops, ref
+
+    out = []
+    for b, m, k, n in tuple(lm_shapes) + RING_MATMUL_SS_OTHER_SHAPES:
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, m, k), generator=gen,
+                          dtype=torch.int64)
+        y = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, k, n), generator=gen,
+                          dtype=torch.int64)
+        x.view(-1)[:3] = torch.tensor([0, -1, -0x7F7F7F7F7F7F7F80])
+        y.view(-1)[:3] = torch.tensor([-1, 0, -2 ** 63])
+        x, y = x.cuda(), y.cuda()
+        bytes_s, ops_s = ring_matmul_ss_bound_s(b, m, k, n)
+        row = record("ring_matmul_ss", "src/repro_torch/csrc/ring_matmul_ss.cu",
+                     "src/repro/core/ring_linalg.py:72 (matmul_ring, a jnp einsum; "
+                     "not a Pallas function)",
+                     lambda: ops.ring_matmul_ss(x, y), lambda: ref.ring_matmul_ss(x, y),
+                     bytes_s * HBM_BYTES_PER_S, ops_s=ops_s,
+                     shape=f"B={b} M={m} K={k} N={n}", path="lm-exact")
+        if (b, m, k, n) in lm_shapes:
+            row["lm_shape"] = (b, m, k, n)
+        row["int_mm_x36_ms"] = int_mm_ms(m, k, n, gen, SS_PLANE_PRODUCTS, b)
+        if row["int_mm_x36_ms"] is not None:
+            print(f"  yardstick: 36 x {b} x torch._int_mm at M={m} K={k} N={n}: "
+                  f"{row['int_mm_x36_ms']:.4f} ms hot", flush=True)
+        out.append(row)
     return out
 
 
@@ -516,8 +624,76 @@ def cone_step_inputs(words, w: int, r: int, n_words: int, parties: int = 2):
     return args, level, nxt
 
 
-def kernel_phase():
-    """Each kernel against its plain version at main-path shapes."""
+def adder_records(record, gen, w: int, n_words: int, shifts, into, path,
+                  lm: bool = False) -> None:
+    """The dense adder's kernels at width w over W = ``n_words`` words (P =
+    2), each against its plain version: beaver_and plain and in its
+    opening form (the sent payload and the peer's halves in the received
+    round buffer, as the adder's initial AND runs it), ks_mask at shift 1,
+    ks_combine, and ks_step (level l's combine fused with level l + 1's
+    mask; g in place) at each of ``shifts``.  With ``lm`` each record the
+    dense adder launches is keyed ``lm_shape`` as ``lm_shape_launches``
+    counts it."""
+    from repro_torch.kernels import ops, ref
+
+    P = 2
+
+    def add(*args, key=None, **kwargs):
+        row = record(*args, into=into, path=path, **kwargs)
+        if lm and key is not None:
+            row["lm_shape"] = key
+
+    sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
+    d, e, a, b, c = (words(gen, P, w, n_words) for _ in range(5))
+    add("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
+        "src/repro/kernels/gmw_round.py:45",
+        lambda: ops.beaver_and(d, e, a, b, c, sel),
+        lambda: ref.beaver_and(d, e, a, b, c, sel),
+        (6 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words}")
+    sent_ba, recv_ba = words(gen, P, 2, w, n_words), words(gen, P, 2, w, n_words)
+    halves = (sent_ba[:, 0], sent_ba[:, 1], a, b, c, sel, recv_ba[:, 0],
+              recv_ba[:, 1])
+    add("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
+        "src/repro/kernels/gmw_round.py:45",
+        lambda: ops.beaver_and(*halves), lambda: ref.beaver_and_open(*halves),
+        (8 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words} opening",
+        key=(w, n_words))
+    g, p = words(gen, P, w, n_words), words(gen, P, w, n_words)
+    a2, b2 = words(gen, P, 2 * w, n_words), words(gen, P, 2 * w, n_words)
+    add("ks_mask", "src/repro_torch/csrc/gmw_round.cu",
+        "src/repro/kernels/gmw_round.py:73",
+        lambda: ops.ks_mask(g, p, a2, b2, 1),
+        lambda: torch.stack(ref.ks_mask(g, p, a2, b2, 1), dim=1),
+        40 * P * w * n_words, shape=f"P={P} w={w} W={n_words} shift=1",
+        key=(w, n_words))
+    dd, ee, c2 = (words(gen, P, 2 * w, n_words) for _ in range(3))
+    opened = words(gen, P, 2, 2 * w, n_words)       # the received round buffer
+    add("ks_combine", "src/repro_torch/csrc/gmw_round.cu",
+        "src/repro/kernels/gmw_round.py:105",
+        lambda: ops.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2, c2,
+                               sel, g),
+        lambda: ref.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2, c2,
+                               sel, g),
+        68 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words}",
+        key=(w, n_words))
+    # 96 bytes per (party, plane of w, word), g in place
+    sent, a3, b3 = words(gen, P, 2, 2 * w, n_words), a2.flip(0), b2.flip(0)
+    for shift in shifts:
+        g3, g4 = g.clone(), g.clone()
+        add("ks_step", "src/repro_torch/csrc/gmw_round.cu",
+            "src/repro/kernels/gmw_round.py:105",
+            lambda: ops.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2, sel,
+                                g3, a3, b3, shift),
+            lambda: ref.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2, sel,
+                                g4, a3, b3, shift),
+            96 * P * w * n_words + 4 * P,
+            shape=f"P={P} w={w} W={n_words} shift={shift}", key=(w, n_words, shift))
+
+
+def kernel_phase(lm_setup_):
+    """Each kernel against its plain version at main-path shapes: ResNet's,
+    then the LM path's, read from ``lm_setup_``'s plans."""
+    from repro_torch.core.schedule import n_levels
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(0)
@@ -531,54 +707,8 @@ def kernel_phase():
         return timed_record(into, scratch.zero_, *args, **kwargs)
 
     for w, into in ((64, rows), (8, extra)):
-        sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
-        d, e, a, b, c = (words(gen, P, w, n_words) for _ in range(5))
-        record("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
-               "src/repro/kernels/gmw_round.py:45",
-               lambda: ops.beaver_and(d, e, a, b, c, sel),
-               lambda: ref.beaver_and(d, e, a, b, c, sel),
-               (6 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words}",
-               into=into)
-        # the opening form, as the dense adder's initial AND runs it: the
-        # sent payload and the peer's halves in the received round buffer
-        sent_ba, recv_ba = words(gen, P, 2, w, n_words), words(gen, P, 2, w, n_words)
-        halves = (sent_ba[:, 0], sent_ba[:, 1], a, b, c, sel, recv_ba[:, 0],
-                  recv_ba[:, 1])
-        record("beaver_and", "src/repro_torch/csrc/gmw_round.cu",
-               "src/repro/kernels/gmw_round.py:45",
-               lambda: ops.beaver_and(*halves), lambda: ref.beaver_and_open(*halves),
-               (8 * d.numel() + P) * 4, shape=f"P={P} w={w} W={n_words} opening",
-               into=into)
-        g, p = words(gen, P, w, n_words), words(gen, P, w, n_words)
-        a2, b2 = words(gen, P, 2 * w, n_words), words(gen, P, 2 * w, n_words)
-        record("ks_mask", "src/repro_torch/csrc/gmw_round.cu",
-               "src/repro/kernels/gmw_round.py:73",
-               lambda: ops.ks_mask(g, p, a2, b2, 1),
-               lambda: torch.stack(ref.ks_mask(g, p, a2, b2, 1), dim=1),
-               40 * P * w * n_words, shape=f"P={P} w={w} W={n_words} shift=1",
-               into=into)
-        dd, ee, c2 = (words(gen, P, 2 * w, n_words) for _ in range(3))
-        opened = words(gen, P, 2, 2 * w, n_words)   # the received round buffer
-        record("ks_combine", "src/repro_torch/csrc/gmw_round.cu",
-               "src/repro/kernels/gmw_round.py:105",
-               lambda: ops.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2,
-                                      c2, sel, g),
-               lambda: ref.ks_combine(dd, opened[:, 0], ee, opened[:, 1], a2, b2,
-                                      c2, sel, g),
-               68 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words}",
-               into=into)
-        # the fused step between two exchanges (level 0's combine, level
-        # 1's mask): 96 bytes per (party, plane of w, word), g in place
-        sent, a3, b3 = words(gen, P, 2, 2 * w, n_words), a2.flip(0), b2.flip(0)
-        g3, g4 = g.clone(), g.clone()
-        record("ks_step", "src/repro_torch/csrc/gmw_round.cu",
-               "src/repro/kernels/gmw_round.py:105",
-               lambda: ops.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2,
-                                   sel, g3, a3, b3, 2),
-               lambda: ref.ks_step(sent, opened[:, 0], opened[:, 1], a2, b2, c2,
-                                   sel, g4, a3, b3, 2),
-               96 * P * w * n_words + 4 * P, shape=f"P={P} w={w} W={n_words} shift=2",
-               into=into)
+        adder_records(record, gen, w, n_words, (2,), into, "exact")
+    sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
     # the cone adder's combine (off the ResNet plans since cone_step took
     # it in) at the stem's first level, in place on the adder's (P, w-1, W)
     # g and p planes at rows 2, 4, ..., w-2 (n = 31 of the exact plan's
@@ -684,6 +814,68 @@ def kernel_phase():
         if row["shape"] == "M=2048 K=576 N=64":
             extra.remove(row)
             rows.append(row)
+    # the LM path's shapes, read from its two plans (``lm_shape_launches``):
+    # the dense adder at every width of either plan over every word count
+    # (W of the 2 streams' merged E), ks_step at every level's shift;
+    # pack_ring (masked) at each (k, m, E); unpack at each sign plane;
+    # ring_matmul_ss at each product (its QK^T Beaver combine is the row
+    # of the kernels line); each per LM call beside its bound
+    cfg, _, lm_plans, _, _ = lm_setup_
+    lm_counts = {name: lm_shape_launches(plan, cfg) for name, plan in lm_plans.items()}
+
+    def lm_path(kernel, pick):
+        return next(name for name, c in lm_counts.items() if any(map(pick, c[kernel])))
+
+    lm_rows = []
+    adder = {s for c in lm_counts.values() for s in c["ks_mask"]}
+    for w in sorted({w for w, _ in adder}, reverse=True):
+        for n_w in sorted({n_w for _, n_w in adder}):
+            adder_records(record, gen, w, n_w,
+                          tuple(1 << lvl for lvl in range(1, n_levels(w))), lm_rows,
+                          lm_path("ks_mask", lambda s: s[0] == w), lm=True)
+    for k, m, e in sorted({s for c in lm_counts.values() for s in c["pack_ring"]},
+                          reverse=True):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
+                          dtype=torch.int64).cuda()
+        r = words(gen, P, k - m, (e + 31) // 32)
+        record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:44",
+               lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
+               8 * P * e + 8 * r.numel(), shape=f"P={P} E={e} k={k} m={m} masked",
+               into=lm_rows, path=lm_path("pack_ring", lambda s: s == (k, m, e)))
+        lm_rows[-1]["lm_shape"] = (k, m, e)
+    for n in sorted({n for c in lm_counts.values() for n in c["unpack"]}, reverse=True):
+        packed = words(gen, P, 1, (n + 31) // 32)
+        record("unpack", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:60",
+               lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
+               4 * packed.numel() + 4 * P * n,
+               shape=f"R={P} w=1 W={packed.shape[-1]} n={n}", into=lm_rows,
+               path=lm_path("unpack", lambda s: s == n))
+        lm_rows[-1]["lm_shape"] = n
+    ss_shapes = sorted({s for c in lm_counts.values() for s in c["ring_matmul_ss"]})
+    for row in ring_matmul_ss_phase(lambda *a, **kw: record(*a, into=lm_rows, **kw),
+                                    gen, ss_shapes):
+        if row["shape"] == "B=32 M=8 K=128 N=8":
+            lm_rows.remove(row)
+            rows.append(row)
+    extra += lm_rows
+    lm_sums = {}
+    for name, counts in lm_counts.items():
+        for kernel, launches in counts.items():
+            if not launches:
+                continue
+            by_shape = {r["lm_shape"]: r for r in rows + extra
+                        if r["name"] == kernel and "lm_shape" in r}
+            sums = call_sums(by_shape, launches)
+            lm_sums.setdefault(kernel, {})[name] = sums
+            print(f"{kernel} per {name} call ({sums['launches']} launches at "
+                  f"{len(launches)} shapes): {sums['ms']:.4f} ms from DRAM, "
+                  f"{sums['hot_ms']:.4f} ms from L2, {sums['eager_call_ms']:.4f} ms "
+                  f"eager; card bound {sums['bound_ms']:.4f} ms", flush=True)
+    for row in rows + extra:
+        if "lm_shape" in row:
+            row["lm_per_call_sums"] = lm_sums[row["name"]]
     return rows, extra
 
 
@@ -737,7 +929,8 @@ def _call(model, enc, mode, key, cc):
 
 def _check_call(name, run, sched, want, errs):
     """Rounds and bytes equal to the schedule; finite logits of the right
-    shape; the exact plans' reveals within the tolerance."""
+    shape; the exact plans' reveals (ResNet's and the LM's) within the
+    tolerance."""
     if (run["rounds"], run["bytes"]) != (sched.n_rounds, sched.bytes_tx):
         raise AssertionError(f"{name}: measured {run['rounds']} rounds / "
                              f"{run['bytes']} B != schedule {sched.n_rounds} / "
@@ -746,7 +939,7 @@ def _check_call(name, run, sched, want, errs):
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
     errs.append(float((got - want).abs().max()))
-    if name.startswith("exact") and \
+    if name.startswith(("exact", "lm-exact")) and \
             errs[-1] > ATOL + RTOL * float(want.abs().max()):
         raise AssertionError(f"{name} plan: max error {errs[-1]} vs plaintext")
 
@@ -997,52 +1190,250 @@ def main_path_phase():
     return runs, launches
 
 
-def ragged_merge_phase():
-    """``gmw.relu_many`` on 4 sibling streams of ``RAGGED_N`` elements, dense
-    at (64, 0) and with the cone at (21, 13): not a multiple of 32, so the
-    streams' triples merge at the bit level (unpack, cat, pack).  Launch
-    counters are zeroed just before each run on the card and read just
-    after; the output shares must equal the same call on the CPU (the
-    plain versions) bit for bit."""
+def lm_setup():
+    """Qwen1.5-0.5B at full width, ``LM_LAYERS`` layers, seeded random
+    float32 weights at the reference's init scales; its two plans, the
+    ``LM_STREAMS`` requests' hidden states and the plaintext twin's logits
+    (float32 on the card, TF32 off)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=LM_LAYERS,
+                              dtype="float32")
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    plan = lm.trace(params, cfg, 1, LM_SEQ)
+    reduced = plan.with_hb(HBConfig(
+        tuple(HBLayer(k=22, m=0) if g % 2 == 0 else HBLayer(k=22, m=6)
+              for g in range(plan.n_groups)), plan.group_elements))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    hs = [torch.randn((1, LM_SEQ, cfg.d_model), generator=gen, device="cuda") * 0.5
+          for _ in range(LM_STREAMS)]
+    with torch.no_grad():
+        want = torch.cat([lm.mpc_reference(params, h, cfg) for h in hs])
+    return cfg, params, {"lm-exact": plan, "lm-reduced": reduced}, hs, want
+
+
+def lm_shape_launches(plan, cfg) -> dict:
+    """Each kernel's launches per LM call by shape, read from the plan: per
+    ReLU call (the streams merged into one of E = ``LM_STREAMS`` x its
+    elements, W = ceil(E / 32) words), one masked pack_ring at (k, m, E),
+    one unpack of the sign plane at E and the dense adder's beaver_and,
+    ks_mask and ks_combine at (w, W) and ks_step at (w, W, 2^l) for each
+    level l > 0; ring_matmul per ``LM_RING_MATMUL_SHAPES``; per matmul open
+    and stream, ring_matmul_ss at (H, M, K, N) (the triple's C = A @ B) and
+    at (2H, M, 2K, N) (the Beaver combine [E | A_p] @ [B_p + [p = 0] F ;
+    F], the parties' cells stacked), (M, K, N) the product (QK^T or A@V)
+    whose H (MK + KN) elements the open carries."""
+    from repro_torch.core.schedule import n_levels
+
+    out = {k: {} for k in ("beaver_and", "ks_mask", "ks_step", "ks_combine",
+                           "ks_level", "cone_step", "pack", "pack_ring", "unpack",
+                           "ring_matmul", "ring_matmul_ss")}
+
+    def add(kernel, shape, n=1):
+        out[kernel][shape] = out[kernel].get(shape, 0) + n
+
+    for c in plan.calls:
+        layer = plan.hb.layers[c.group]
+        e = LM_STREAMS * c.n_elements
+        n_words = (e + 31) // 32
+        add("pack_ring", (layer.k, layer.m, e))
+        add("unpack", e)
+        if layer.width < 2:
+            continue
+        for k in ("beaver_and", "ks_mask", "ks_combine"):
+            add(k, (layer.width, n_words))
+        for lvl in range(1, n_levels(layer.width)):
+            add("ks_step", (layer.width, n_words, 1 << lvl))
+    for m, k, n, c in LM_RING_MATMUL_SHAPES:
+        add("ring_matmul", (m, k, n), c)
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    for o in plan.opens:
+        if o.label != "matmul":
+            continue
+        mkn = [p for p in ((LM_SEQ, dh, LM_SEQ), (LM_SEQ, LM_SEQ, dh))
+               if h * (p[0] * p[1] + p[1] * p[2]) == o.n_elements]
+        if len(mkn) != 1:
+            raise AssertionError(f"matmul open of {o.n_elements} elements is "
+                                 f"neither QK^T nor A@V")
+        m, k, n = mkn[0]
+        add("ring_matmul_ss", (h, m, k, n), LM_STREAMS)
+        add("ring_matmul_ss", (2 * h, m, 2 * k, n), LM_STREAMS)
+    return out
+
+
+def lm_online(name, plan, setup, calls=ONLINE_CALLS):
+    """One LM plan: the ReLU triple pool offline, one warm-up call, ``calls``
+    timed calls on the generator loop, each checked (rounds and bytes, the
+    path's launches, the exact plan's error); then the last call on
+    ``HB_ROUND_LOOP=scan`` (same key, pool rolled back: same shares, nothing
+    captured) and under the profiler."""
+    from repro_torch import api
+    from repro_torch.core import comm as comm_lib, prng
+
+    cfg, params, _, hs, want = setup
+    sched = plan.schedule(streams=LM_STREAMS)
+    if (sched.n_rounds, sched.bytes_tx) != LM_SCHEDULE[name]:
+        raise AssertionError(f"{name}: schedule {sched.n_rounds} rounds / "
+                             f"{sched.bytes_tx} B, expected {LM_SCHEDULE[name]}")
+    cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+    requests = 1 + calls
+    session = api.Session(key=0, comm=cc, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session.offline(prng.PRNGKey(7, "cuda"), plan, requests=requests,
+                    streams=LM_STREAMS)
+    torch.cuda.synchronize()
+    offline_s = time.perf_counter() - t0
+    provider = session.provider
+    pool_bytes = provider.device_bytes()
+    model = api.compile(None, params, cfg, plan, session)
+    enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), h) for i, h in enumerate(hs)]
+    keys = [prng.PRNGKey(1000 + i, "cuda") for i in range(requests)]
+    expect = {k: sum(v.values()) for k, v in lm_shape_launches(plan, cfg).items()}
+    limit = ATOL + RTOL * float(want.abs().max())
+    runs, errs = [], []
+    for i in range(requests):
+        token = provider.checkpoint()
+        run = _call(model, enc, "python", keys[i], cc)
+        _check_call(name, run, sched, want, errs)
+        counts = dict(run["counts"])
+        masked = counts.pop("pack_ring_masked")
+        launched = {k for k, v in counts.items() if v}
+        if launched != PATH_KERNELS[name] or masked != counts["pack_ring"] or \
+                any(counts[k] != v for k, v in expect.items()):
+            raise AssertionError(f"{name}: launched {counts} ({masked} pack_ring "
+                                 f"masked), its path runs {expect}")
+        if i:
+            runs.append(run)
+    walls = [r["wall"] for r in runs]
+    last, eager = keys[-1], runs[-1]
+    provider.rollback(token)
+    scan = _call(model, enc, "scan", last, cc)
+    _same_shares(name, scan["outs"], eager["outs"], "HB_ROUND_LOOP=scan gives other "
+                 "shares than python")
+    if model.replay_stats(enc) is not None or scan["counts"] != eager["counts"]:
+        raise AssertionError(f"{name}: a plan with opens was captured or launched "
+                             f"{scan['counts']} under scan")
+    provider.rollback(token)
+    os.environ["HB_ROUND_LOOP"] = "python"
+    prof = _profiled(lambda: model(enc, key=last))
+    os.environ.pop("HB_ROUND_LOOP", None)
+    counts = dict(eager["counts"])
+    counts.pop("pack_ring_masked")
+    out = {"offline_s": offline_s, "offline_s_per_call": offline_s / requests,
+           "pool_requests": requests, "pool_bytes": pool_bytes,
+           "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
+           "max_abs_err_vs_plaintext": max(errs), "err_limit": limit,
+           "max_abs_logit": float(want.abs().max()), "launches": counts,
+           "online_s": walls, "online_median_s": statistics.median(walls),
+           "online_min_s": min(walls), "online_max_s": max(walls),
+           "scan_equals_python": True, "profiled": prof}
+    print(f"LM path {name} ({LM_ARCH}, {LM_LAYERS} layers, {LM_STREAMS} requests of "
+          f"{LM_SEQ} tokens): offline {offline_s:.3f} s for {requests} calls "
+          f"({offline_s / requests:.3f} s per call, pool {pool_bytes} B on the "
+          f"device); online per call on the generator loop: median "
+          f"{out['online_median_s']:.4f} s, min {out['online_min_s']:.4f}, max "
+          f"{out['online_max_s']:.4f} over {calls} warm calls; {sched.n_rounds} "
+          f"rounds, {sched.bytes_tx} B; launches {counts}; max |reveal - "
+          f"plaintext| {max(errs):.4g} (limit {limit:.4g}, max |logit| "
+          f"{out['max_abs_logit']:.4g}); scan == python; one call under the "
+          f"profiler: {prof['device_ops']} device ops busy "
+          f"{prof['device_busy_s']:.4f} s of a {prof['span_s']:.4f} s trace = "
+          f"{100 * prof['device_busy_share']:.1f}%, most device time "
+          f"{prof['top_device_ops_us']}", flush=True)
+    return out
+
+
+def lm_path_phase(setup):
+    """The LM path under its two plans; returns the runs and each kernel's
+    launches per path."""
+    runs, launches = {}, {}
+    for name, plan in setup[2].items():
+        runs[name] = lm_online(name, plan, setup)
+        for k, v in runs[name]["launches"].items():
+            launches.setdefault(k, {})[name] = v
+    return runs, launches
+
+
+def relu_card_vs_cpu(name, n, k, m, streams, cone, seed):
+    """``gmw.relu_many`` on ``streams`` sibling streams of n elements at
+    (k, m), seeded inputs, keys and triples, on the CPU (the plain
+    versions) and on the card: launch counters zeroed just before the
+    card's run and read just after; it must launch exactly its
+    ``PATH_KERNELS``, pack_ring with the A2B mask every time, and its
+    shares must equal the CPU run's bit for bit.  Returns the card's
+    (launches, rounds, bytes)."""
     from repro_torch.core import beaver, comm as comm_lib, gmw, prng
     from repro_torch.kernels import ops
 
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(seed)
+        xs = [torch.randint(-2 ** 63, 2 ** 63 - 1, (2, n), generator=gen,
+                            dtype=torch.int64).to(dev) for _ in range(streams)]
+        keys = [prng.PRNGKey(400 + i, dev) for i in range(streams)]
+        tris = [beaver.gen_relu_triples(prng.PRNGKey(500 + i, dev), n, k - m,
+                                        cone=cone) for i in range(streams)]
+        cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_launches()
+        outs[dev] = gmw.relu_many(keys, xs, tris, cc, [(k, m)] * streams, cone=cone)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, masked = ops.launch_counts(), ops.pack_ring.masked
+    launched = {kn for kn, v in counts.items() if v}
+    if launched != PATH_KERNELS[name] or masked != counts["pack_ring"]:
+        raise AssertionError(f"{name}: launched {sorted(launched)} ({masked} "
+                             f"pack_ring masked), its path runs "
+                             f"{sorted(PATH_KERNELS[name])}, pack_ring masked")
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: shares differ from the CPU run")
+    print(f"{name}: {streams} streams x {n} elements at ({k}, {m}), launches "
+          f"{counts}, shares equal the CPU run's", flush=True)
+    return counts, cc.n_rounds, cc.bytes_tx
+
+
+def ragged_merge_phase():
+    """``gmw.relu_many`` on 4 sibling streams of ``RAGGED_N`` elements, dense
+    at (64, 0) and with the cone at (21, 13): not a multiple of 32, so the
+    streams' triples merge at the bit level (unpack, cat, pack); each equal
+    to the CPU run (``relu_card_vs_cpu``)."""
     runs, launches = {}, {}
     for name, (k, m), cone in (("ragged-merge", (64, 0), False),
                                ("ragged-merge-cone", (21, 13), True)):
-        outs = {}
-        for dev in ("cpu", "cuda"):
-            gen = torch.Generator().manual_seed(3)
-            xs = [torch.randint(-2 ** 63, 2 ** 63 - 1, (2, RAGGED_N), generator=gen,
-                                dtype=torch.int64).to(dev) for _ in range(STREAMS)]
-            keys = [prng.PRNGKey(400 + i, dev) for i in range(STREAMS)]
-            tris = [beaver.gen_relu_triples(prng.PRNGKey(500 + i, dev), RAGGED_N,
-                                            k - m, cone=cone) for i in range(STREAMS)]
-            cc = comm_lib.CoalescingComm(comm_lib.SimComm())
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                ops.reset_launches()
-            outs[dev] = gmw.relu_many(keys, xs, tris, cc, [(k, m)] * STREAMS,
-                                      cone=cone)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                counts, masked = ops.launch_counts(), ops.pack_ring.masked
-        launched = {kn for kn, v in counts.items() if v}
-        if launched != PATH_KERNELS[name] or masked != counts["pack_ring"]:
-            raise AssertionError(f"{name}: launched {sorted(launched)} "
-                                 f"({masked} pack_ring masked), its path runs "
-                                 f"{sorted(PATH_KERNELS[name])}, pack_ring masked")
-        for got, want in zip(outs["cuda"], outs["cpu"]):
-            if not torch.equal(got.cpu(), want):
-                raise AssertionError(f"{name}: shares differ from the CPU run")
+        counts, rounds, bytes_tx = relu_card_vs_cpu(name, RAGGED_N, k, m, STREAMS,
+                                                    cone, 3)
         for kn, v in counts.items():
             launches.setdefault(kn, {})[name] = v
         runs[name] = {"n_per_stream": RAGGED_N, "k": k, "m": m,
-                      "rounds": cc.n_rounds, "bytes": cc.bytes_tx,
-                      "launches": counts}
-        print(f"{name}: {STREAMS} streams x {RAGGED_N} elements at ({k}, {m}), "
-              f"launches {counts}, shares equal the CPU run's", flush=True)
+                      "rounds": rounds, "bytes": bytes_tx, "launches": counts}
     return runs, launches
+
+
+def lm_relu_phase(setup):
+    """The LM path's ReLU calls at full width, one per (k, m, n) of either
+    plan (n a request's elements): ``gmw.relu_many`` on ``LM_STREAMS``
+    sibling streams on the card, equal bit for bit to the CPU run
+    (``relu_card_vs_cpu``; the reduced plan's logits are only reported, so
+    this is where its (22, 0) and (22, 6) ReLUs are held to the plain
+    versions at the path's sizes)."""
+    plans = setup[2]
+    sites = sorted({(plan.hb.layers[c.group].k, plan.hb.layers[c.group].m,
+                     c.n_elements) for plan in plans.values() for c in plan.calls},
+                   reverse=True)
+    out = []
+    for k, m, n in sites:
+        counts, rounds, bytes_tx = relu_card_vs_cpu("lm-relu", n, k, m, LM_STREAMS,
+                                                    False, 5)
+        out.append({"n_per_stream": n, "k": k, "m": m, "rounds": rounds,
+                    "bytes": bytes_tx, "launches": counts})
+    return out
 
 
 def merge_phase(flush):
@@ -1210,15 +1601,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"build: {build.build_all():.1f} s", flush=True)
 
-    rows, extra = kernel_phase()
+    lm = lm_setup()
+    rows, extra = kernel_phase(lm)
     sass = sass_census()
     runs, launches = main_path_phase()
     per_call = sum(c for *_, c in RING_MATMUL_SHAPES)
     if set(launches["ring_matmul"].values()) != {per_call}:
         raise AssertionError(f"ring_matmul launched {launches['ring_matmul']} "
                              f"times, its shape table counts {per_call}")
+    lm_runs, lm_path_launches = lm_path_phase(lm)
+    lm_relu = lm_relu_phase(lm)
     ragged, ragged_launches = ragged_merge_phase()
-    for k, by_path in ragged_launches.items():
+    for k, by_path in list(ragged_launches.items()) + list(lm_path_launches.items()):
         launches.setdefault(k, {}).update(by_path)
     merge = merge_phase(torch.empty(64 * 2 ** 20, dtype=torch.int32,
                                     device="cuda").zero_)
@@ -1234,7 +1628,9 @@ def main() -> None:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "device": device, "kernels": rows,
                    "kernels_other_shapes": extra, "ring_matmul_sass": sass,
-                   "main_path": runs, "ragged_merge": ragged, "merge": merge,
+                   "main_path": runs, "lm_path": lm_runs, "lm_relu": lm_relu,
+                   "ragged_merge": ragged,
+                   "merge": merge,
                    "stem_breakdown": breakdown}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

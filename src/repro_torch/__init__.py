@@ -9,8 +9,11 @@ Same layout as the reference, so each module names its twin:
   kernels/  CUDA kernels (``csrc/``) behind ``ops`` wrappers, their plain
             PyTorch versions (``ref``) and the build (``build``)
   api/      Plan, Session, compile -> PrivateModel
-  models/   ResNet (plaintext forward + registered MPC forward)
-  configs/  ResNet configs
+  nn/       the dense LM's projections and RoPE, and the reduced-ring
+            lowering of its nonlinearities (``nn/approx``)
+  models/   ResNet (plaintext forward + registered MPC forward) and the
+            dense LM (plaintext twin + registered MPC forward)
+  configs/  ResNet configs and the LM architectures
 
 Entry points run on the GPU unless given ``device="cpu"``: ``device=None``
 means CUDA and raises without a card (``device.resolve``).

@@ -9,11 +9,20 @@ stream and its triples from the Session's provider, and sibling streams
 share protocol rounds through ``relu_many``.  Keys are consumed in exactly
 the reference's order, so outputs are share-level bit-identical to it.
 
+Models with secret-by-secret products (the LM's attention and gating)
+reach them through ``relu_fn.matmul`` / ``relu_fn.mul``: at every product
+site each stream draws one key from its key stream, interleaved with the
+ReLU calls' draws in call order, and derives its Beaver triple inline from
+it; sibling streams' opens coalesce into one round (``products_many``).
+
 Two round loops run the replay (``runtime/loop.py``): the generator loop,
 and, by default wherever the comm allows, the captured replay: one call's
 whole online phase captured once per stream signature as a CUDA graph,
 then replayed with each call's inputs, keys and triples copied into its
-input buffers.  Both give the same shares.
+input buffers.  Both give the same shares.  Plans with open sites stay on
+the generator loop under both settings, as in the reference: their
+product keys are drawn between the ReLU calls' draws, which the replay's
+pre-drawn payload does not hold.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import torch
 
 from .. import errors
 from ..core import beaver, comm as comm_lib, prng
-from ..core.mpc_tensor import MPCTensor, relu_many
+from ..core.mpc_tensor import MPCTensor, products_many, relu_many
 from ..kernels import ops
 from ..runtime import loop as loop_lib
 from .plan import Plan
@@ -244,10 +253,14 @@ class PrivateModel:
                      for i, n in enumerate(ns))
         return keys, tris
 
-    def _forward(self, params, tensors, comm, auto_batch: bool, call_inputs):
+    def _forward(self, params, tensors, comm, auto_batch: bool, call_inputs,
+                 open_keys=None):
         """The registered forward over sibling streams: every ReLU call
         runs ``relu_many`` on the keys and triples ``call_inputs(hs, g)``
-        gives it; zero-element streams pass through."""
+        gives it; zero-element streams pass through.  With ``open_keys``
+        (``open_keys(n)``: one key per stream) the forward's
+        ``relu_fn.matmul`` / ``relu_fn.mul`` run ``products_many`` with
+        triples derived inline from those keys."""
         hb_layers = self.plan.hb.layers
         cone = self.plan.cone
 
@@ -264,6 +277,13 @@ class PrivateModel:
                     outs[i] = rets[j]
             return outs
 
+        if open_keys is not None:
+            def _products(kind, xs, ys):
+                return products_many([kind] * len(xs), open_keys(len(xs)), xs, ys,
+                                     comm=comm)
+
+            _relu.matmul = lambda xs, ys: _products("matmul", xs, ys)
+            _relu.mul = lambda xs, ys: _products("mul", xs, ys)
         return self.mpc_forward(params, list(tensors), self.cfg, _relu, comm)
 
     def _run_streams(self, tensors: List[MPCTensor], key_iters: List,
@@ -271,18 +291,21 @@ class PrivateModel:
                      auto_batch: Optional[bool] = None):
         """Replay with per-stream key iterators and providers: at every ReLU
         call, stream i draws one key from ``key_iters[i]`` and one bundle
-        from ``providers[i]``.  On ``HB_ROUND_LOOP=scan`` (the default) and
-        an eligible comm, the captured replay runs it."""
+        from ``providers[i]``, and at every product site one key from
+        ``key_iters[i]``.  On ``HB_ROUND_LOOP=scan`` (the default), an
+        eligible comm and a plan without open sites, the captured replay
+        runs it."""
         if auto_batch is None:
             auto_batch = self.auto_batch
         if (loop_lib.round_loop_mode() == "scan"
-                and loop_lib.compiled_eligible(comm)):
+                and loop_lib.compiled_eligible(comm) and not self.plan.opens):
             return self._run_streams_compiled(tensors, key_iters, providers,
                                               comm, params, auto_batch)
         return self._forward(
             params, tensors, comm, auto_batch,
             lambda hs, g: self._draw(key_iters, providers, g,
-                                     [math.prod(h.shape) for h in hs]))
+                                     [math.prod(h.shape) for h in hs]),
+            lambda n: [next(key_iters[i]) for i in range(n)])
 
     # -- captured replay -------------------------------------------------------
     def _stream_sig(self, tensors: Sequence[MPCTensor], auto_batch: bool):

@@ -2,15 +2,14 @@
 reference's ``api/plan.py``).
 
 A Plan records what the online phase replays: the model's ReLU call sites
-in call order (element count, group, shape), the per-group HummingBird
-(k, m) assignment, and whether the cone-pruned adder is used.  Its JSON
-and ``digest()`` are byte-identical to the reference's for the same model,
-so the two packages agree on which network they run.  ``trace_plan`` runs
-the plaintext torch forward on the ``meta`` device (the reference uses
-``jax.eval_shape``): shapes only, no data, no compute.
-
-Secret-by-secret product sites (the reference's ``opens``, used by its LM
-slice) are not ported yet.
+in call order (element count, group, shape), its secret-by-secret product
+sites (``opens``: one Beaver open round each, at its place among the ReLU
+calls), the per-group HummingBird (k, m) assignment, and whether the
+cone-pruned adder is used.  Its JSON and ``digest()`` are byte-identical
+to the reference's for the same model, so the two packages agree on which
+network they run.  ``trace_plan`` runs the plaintext torch forward on the
+``meta`` device (the reference uses ``jax.eval_shape``): shapes only, no
+data, no compute.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ import hashlib
 import json
 import math
 import pathlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,14 +47,37 @@ class ReluCall:
 
 
 @dataclasses.dataclass(frozen=True)
+class OpenCall:
+    """One Beaver-product open site (a secret-by-secret mul or matmul): the
+    ring elements its single exchange carries a party, one direction (2n
+    for an elementwise mul of n, size(X) + size(Y) for a matmul), and its
+    place in program order (``at_call``: the ReLU calls before it)."""
+
+    n_elements: int
+    at_call: int
+    label: str = ""
+
+    def to_json(self) -> Dict:
+        return {"n_elements": self.n_elements, "at_call": self.at_call,
+                "label": self.label}
+
+    @staticmethod
+    def from_json(d: Dict) -> "OpenCall":
+        return OpenCall(int(d["n_elements"]), int(d["at_call"]),
+                        str(d.get("label", "")))
+
+
+@dataclasses.dataclass(frozen=True)
 class Plan:
-    """Network plan: ReLU call trace + per-group HummingBird assignment."""
+    """Network plan: ReLU call trace, Beaver open sites, and the per-group
+    HummingBird assignment."""
 
     calls: Tuple[ReluCall, ...]
     hb: HBConfig
     input_shape: Tuple[int, ...] = ()
     cone: bool = False
     name: str = ""
+    opens: Tuple[OpenCall, ...] = ()
 
     # -- derived views --------------------------------------------------------
     @property
@@ -86,18 +108,32 @@ class Plan:
                           (c.n_elements, layer.k, layer.m)))
         return tuple(specs)
 
+    def open_specs(self) -> Tuple[int, ...]:
+        """Ring elements opened per Beaver-product site, in program order
+        (one ``core.schedule.simulate_open`` spec each)."""
+        return tuple(o.n_elements for o in self.opens)
+
     # -- analytics ------------------------------------------------------------
     def schedule(self, streams: int = 1,
                  auto_batch: bool = True) -> schedule_lib.Schedule:
         """Fused-round timeline of one replay over ``streams`` sibling
-        streams: one ``relu_many`` lockstep per call; sequential calls
-        never share rounds, so per-call schedules compose with ``+``."""
+        streams: one ``relu_many`` lockstep per call, and each open site's
+        one coalesced round before the call it precedes; sequential calls
+        and opens never share rounds, so their schedules compose with
+        ``+``."""
         if not self.calls and self.n_groups:
             raise ValueError("cost/schedule need a traced plan (trace_plan)")
+        opens_at: Dict[int, List[OpenCall]] = {}
+        for o in self.opens:
+            opens_at.setdefault(o.at_call, []).append(o)
         total = schedule_lib.Schedule.empty()
-        for spec in self.call_specs():
+        for j, spec in enumerate(self.call_specs()):
+            for o in opens_at.get(j, ()):
+                total = total + schedule_lib.simulate_open([o.n_elements] * streams)
             total = total + schedule_lib.simulate(
                 [spec] * streams, cone=self.cone, auto_batch=auto_batch)
+        for o in opens_at.get(len(self.calls), ()):
+            total = total + schedule_lib.simulate_open([o.n_elements] * streams)
         return total
 
     def cost(self, streams: int = 1, auto_batch: bool = True) -> CommCost:
@@ -107,25 +143,30 @@ class Plan:
 
     # -- (de)serialization ----------------------------------------------------
     def to_json(self) -> Dict:
-        return {"name": self.name, "input_shape": list(self.input_shape),
-                "cone": self.cone, "hb": self.hb.to_json(),
-                "calls": [c.to_json() for c in self.calls]}
+        d = {"name": self.name, "input_shape": list(self.input_shape),
+             "cone": self.cone, "hb": self.hb.to_json(),
+             "calls": [c.to_json() for c in self.calls]}
+        if self.opens:
+            # only plans with secret-by-secret products carry the key, as in
+            # the reference, so plans without keep their digests
+            d["opens"] = [o.to_json() for o in self.opens]
+        return d
 
     @staticmethod
     def from_json(d: Dict) -> "Plan":
-        if d.get("opens"):
-            raise errors.PlanInvalid(
-                "plans with secret-product opens are not supported yet")
         return Plan(calls=tuple(ReluCall.from_json(c) for c in d["calls"]),
                     hb=HBConfig.from_json(d["hb"]),
                     input_shape=tuple(int(s) for s in d["input_shape"]),
-                    cone=bool(d["cone"]), name=str(d.get("name", "")))
+                    cone=bool(d["cone"]), name=str(d.get("name", "")),
+                    opens=tuple(OpenCall.from_json(o) for o in d.get("opens", [])))
 
     def validate(self) -> "Plan":
         """Static pre-flight of a loaded plan; raises ``errors.PlanInvalid``
         on (k, m) outside 0 <= m <= k <= 64, a call naming a missing group
         or disagreeing with its shape, group element drift, triple-spec
-        drift, or a composed schedule that differs from the per-call sum."""
+        drift, an open with negative elements or outside the call order, or
+        a composed schedule that differs from the per-call and per-open
+        sum."""
         hb = self.hb
         if len(hb.layers) != len(hb.group_elements):
             raise errors.PlanInvalid(
@@ -156,6 +197,14 @@ class Plan:
                     or not 0 <= w <= 64:
                 raise errors.PlanInvalid(
                     f"plan {self.name!r}: triple spec {i} is ({n}, {w})")
+        for i, o in enumerate(self.opens):
+            if o.n_elements < 0:
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: open {i} claims {o.n_elements} elements")
+            if not 0 <= o.at_call <= len(self.calls):
+                raise errors.PlanInvalid(
+                    f"plan {self.name!r}: open {i} sits at call position "
+                    f"{o.at_call} but the plan has {len(self.calls)} ReLU calls")
         if self.calls:
             total = self.schedule()
             rounds = bytes_tx = 0
@@ -163,6 +212,10 @@ class Plan:
                 per_call = schedule_lib.simulate([spec], cone=self.cone)
                 rounds += per_call.n_rounds
                 bytes_tx += per_call.bytes_tx
+            for n in self.open_specs():
+                per_open = schedule_lib.simulate_open([n])
+                rounds += per_open.n_rounds
+                bytes_tx += per_open.bytes_tx
             if (total.n_rounds, total.bytes_tx) != (rounds, bytes_tx):
                 raise errors.PlanInvalid(
                     f"plan {self.name!r}: composed schedule "
@@ -205,15 +258,30 @@ def trace_plan(apply_fn, params, x, *, hb: Optional[HBConfig] = None,
 
     ``x`` is an example input tensor or a plain shape tuple (float32).  The
     forward runs on the ``meta`` device, so nothing is computed;
-    ``relu_fn(v, g)`` call sites are recorded in call order and ``hb``
-    defaults to the exact 64-bit assignment.
+    ``relu_fn(v, g)`` call sites are recorded in call order, and so are
+    the secret-product sites a model reaches through ``relu_fn.matmul`` /
+    ``relu_fn.mul`` (one Beaver open each); ``hb`` defaults to the exact
+    64-bit assignment.
     """
     shape = tuple(int(s) for s in (x if isinstance(x, (tuple, list)) else x.shape))
-    calls = []
+    calls: List[ReluCall] = []
+    opens: List[OpenCall] = []
 
     def tracing_relu(v, g):
         calls.append(ReluCall(int(v.numel()), int(g), tuple(int(s) for s in v.shape)))
         return v
+
+    def tracing_matmul(a, b):
+        opens.append(OpenCall(int(a.numel() + b.numel()), at_call=len(calls),
+                              label="matmul"))
+        return torch.matmul(a, b)
+
+    def tracing_mul(a, b):
+        opens.append(OpenCall(int(2 * a.numel()), at_call=len(calls), label="mul"))
+        return a * b
+
+    tracing_relu.matmul = tracing_matmul
+    tracing_relu.mul = tracing_mul
 
     apply_fn(_to_meta(params), torch.empty(shape, device="meta"),
              relu_fn=tracing_relu)
@@ -230,4 +298,4 @@ def trace_plan(apply_fn, params, x, *, hb: Optional[HBConfig] = None,
         assert hb.n_groups == n, (hb.n_groups, n)
         hb = HBConfig(hb.layers, tuple(elements))
     return Plan(calls=tuple(calls), hb=hb, input_shape=shape, cone=cone,
-                name=name)
+                name=name, opens=tuple(opens))

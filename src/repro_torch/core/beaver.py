@@ -14,7 +14,7 @@ from typing import (Iterable, List, Optional, Protocol, Sequence, Tuple, Union,
 import torch
 
 from .. import errors
-from . import prng, ring, shares
+from . import prng, ring, ring_linalg, shares
 from .schedule import cone_sets, n_levels
 
 
@@ -47,6 +47,20 @@ def gen_arith(key: torch.Tensor, shape, n_parties: int = 2) -> ArithTriple:
     return ArithTriple(shares.share(ksa, a, n_parties),
                        shares.share(ksb, b, n_parties),
                        shares.share(ksc, a * b, n_parties))
+
+
+def gen_matmul(key: torch.Tensor, x_shape, y_shape,
+               n_parties: int = 2) -> ArithTriple:
+    """Matrix Beaver triple (A, B, C = A @ B mod 2^64) for a secret-by-secret
+    matmul of operand shapes ``x_shape @ y_shape`` (batch dims aligned,
+    contraction on the trailing pair); C through the ``ring_matmul_ss``
+    kernel.  Same key split and draws as the reference's ``gen_matmul``."""
+    ka, kb, ksa, ksb, ksc = prng.split(key, 5)
+    a = ring.uniform(ka, tuple(x_shape))
+    b = ring.uniform(kb, tuple(y_shape))
+    return ArithTriple(shares.share(ksa, a, n_parties),
+                       shares.share(ksb, b, n_parties),
+                       shares.share(ksc, ring_linalg.matmul_ring(a, b), n_parties))
 
 
 def gen_bin(key: torch.Tensor, shape, n_parties: int = 2) -> BinTriple:

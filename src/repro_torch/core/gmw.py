@@ -10,6 +10,10 @@ per communication round and is sent the peer's payload back:
   - B2A of the sign bit: one Beaver mult on Z/2^64            (1 round)
   - final x * DReLU(x): one Beaver mult on Z/2^64             (1 round)
 
+and the transformer's secret-by-secret products (``products_many``): one
+Beaver open per elementwise product or matmul, its local combine through
+the ``ring_matmul_ss`` kernel.
+
 ``drive`` runs one generator with one ``comm.swap`` per round;
 ``run_streams`` / ``relu_many`` advance sibling generators in lockstep and
 coalesce each round into ONE exchange.  Round-local compute runs in the
@@ -31,7 +35,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..kernels import ops as kops
-from . import beaver, comm as comm_lib, prng, schedule as schedule_lib, shares
+from . import (beaver, comm as comm_lib, prng, ring_linalg, schedule as schedule_lib,
+               shares)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +256,56 @@ def _beaver_mul_rounds(x: torch.Tensor, y: torch.Tensor,
 def beaver_mul(x: torch.Tensor, y: torch.Tensor, triple: beaver.ArithTriple,
                comm) -> torch.Tensor:
     return drive(_beaver_mul_rounds(x, y, triple, comm), comm)
+
+
+def _beaver_matmul_rounds(x: torch.Tensor, y: torch.Tensor,
+                          triple: beaver.ArithTriple, comm):
+    """Round generator for Z = X @ Y on additive shares (batch dims aligned,
+    contraction on the trailing pair).  Both parties open E = X - A and
+    F = Y - B in ONE exchange, the flattened concatenation of both
+    differences (size(X) + size(Y) ring elements a party, the wire layout
+    of the reference), and combine locally,
+
+        Z_p = C_p + E @ B_p + A_p @ F + [p == 0] E @ F
+            = C_p + [E | A_p] @ [B_p + [p == 0] F ; F],
+
+    the second form one ``ring_matmul_ss`` launch with K doubled (equal
+    mod 2^64 to the reference's three products)."""
+    parties = x.shape[0]
+    e = x - triple.a
+    f = y - triple.b
+    ne = e[0].numel()
+    other = yield torch.cat([e.reshape(parties, -1), f.reshape(parties, -1)], dim=1)
+    e_open = e + other[:, :ne].reshape(e.shape)
+    f_open = f + other[:, ne:].reshape(f.shape)
+    p0 = comm.party_is(0, f_open)
+    lhs = torch.cat([e_open, triple.a], dim=-1)
+    rhs = torch.cat([triple.b + torch.where(p0, f_open, 0), f_open], dim=-2)
+    return triple.c + ring_linalg.matmul_ring(lhs, rhs)
+
+
+def beaver_matmul(x: torch.Tensor, y: torch.Tensor, triple: beaver.ArithTriple,
+                  comm) -> torch.Tensor:
+    """Z = X @ Y on additive shares; one communication round."""
+    return drive(_beaver_matmul_rounds(x, y, triple, comm), comm)
+
+
+def products_many(specs: Sequence[Tuple[str, torch.Tensor, torch.Tensor,
+                                        beaver.ArithTriple]],
+                  comm) -> List[torch.Tensor]:
+    """Round-shared Beaver products over sibling streams: ``specs`` holds
+    one ``(kind, x, y, triple)`` per stream, ``kind`` "mul" (elementwise)
+    or "matmul"; every stream's single open is coalesced into ONE exchange.
+    Returns the per-stream ring results in order."""
+    gens = []
+    for kind, x, y, tri in specs:
+        if kind == "mul":
+            gens.append(_beaver_mul_rounds(x, y, tri, comm))
+        elif kind == "matmul":
+            gens.append(_beaver_matmul_rounds(x, y, tri, comm))
+        else:
+            raise ValueError(f"products_many: unknown kind {kind!r}")
+    return run_streams(comm, gens)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 ``core/mpc_tensor.py``).
 
 Carries int64 ring shares with a leading party dimension plus the
-fixed-point scale.  Linear ops with public weights are local (no
-communication); ReLU runs the GMW protocol with an optional HummingBird
-reduced-ring config.
+fixed-point scale.  Linear ops with public weights and structural ops
+(transpose, repeat, indexing, stack, concat) are local (no
+communication); secret-by-secret products open one Beaver round
+(``products_many``); ReLU runs the GMW protocol with an optional
+HummingBird reduced-ring config.
 """
 from __future__ import annotations
 
@@ -135,6 +137,45 @@ class MPCTensor:
         return MPCTensor(self.data.reshape((self.data.shape[0],) + tuple(shape)),
                          self.frac_bits)
 
+    def transpose(self, *perm) -> "MPCTensor":
+        """Permute the logical axes (the party dim stays leading)."""
+        if len(perm) == 1 and isinstance(perm[0], (tuple, list)):
+            perm = tuple(perm[0])
+        nd = len(self.shape)
+        return MPCTensor(self.data.permute((0,) + tuple(a % nd + 1 for a in perm)),
+                         self.frac_bits)
+
+    def swapaxes(self, a1: int, a2: int) -> "MPCTensor":
+        nd = len(self.shape)
+        perm = list(range(nd))
+        perm[a1 % nd], perm[a2 % nd] = perm[a2 % nd], perm[a1 % nd]
+        return self.transpose(*perm)
+
+    def repeat(self, reps: int, axis: int) -> "MPCTensor":
+        """``jnp.repeat`` along a logical axis (public structural op)."""
+        return MPCTensor(torch.repeat_interleave(self.data, reps,
+                                                 dim=axis % len(self.shape) + 1),
+                         self.frac_bits)
+
+    def __getitem__(self, idx) -> "MPCTensor":
+        """Index/slice the logical axes (party dim untouched)."""
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        return MPCTensor(self.data[(slice(None),) + idx], self.frac_bits)
+
+    # -- secret * secret products ---------------------------------------------
+    def mul(self, other: "MPCTensor", key: torch.Tensor, comm=None,
+            triple: Optional[beaver.ArithTriple] = None) -> "MPCTensor":
+        """Elementwise secret*secret product (one Beaver open round)."""
+        return products_many(["mul"], [key], [self], [other], comm=comm,
+                             triples_list=[triple])[0]
+
+    def matmul(self, other: "MPCTensor", key: torch.Tensor, comm=None,
+               triple: Optional[beaver.ArithTriple] = None) -> "MPCTensor":
+        """Secret@secret matmul (one matrix-Beaver open round)."""
+        return products_many(["matmul"], [key], [self], [other], comm=comm,
+                             triples_list=[triple])[0]
+
     # -- the nonlinear op ------------------------------------------------------
     def relu(self, key: torch.Tensor, comm=None, hb: HBLayer = HBLayer(),
              triples: Optional[beaver.ReluTriples] = None,
@@ -188,4 +229,57 @@ def relu_many(keys, tensors: Sequence[MPCTensor], comm=None,
     return out
 
 
+def stack(tensors: Sequence[MPCTensor], axis: int = 0) -> MPCTensor:
+    """Stack sibling MPCTensors along a new *logical* axis."""
+    fb = tensors[0].frac_bits
+    assert all(t.frac_bits == fb for t in tensors)
+    ax = axis % (len(tensors[0].shape) + 1) + 1
+    return MPCTensor(torch.stack([t.data for t in tensors], dim=ax), fb)
+
+
+def concat(tensors: Sequence[MPCTensor], axis: int = 0) -> MPCTensor:
+    """Concatenate sibling MPCTensors along an existing *logical* axis."""
+    fb = tensors[0].frac_bits
+    assert all(t.frac_bits == fb for t in tensors)
+    ax = axis % len(tensors[0].shape) + 1
+    return MPCTensor(torch.cat([t.data for t in tensors], dim=ax), fb)
+
+
+def products_many(kinds: Sequence[str], keys, xs: Sequence[MPCTensor],
+                  ys: Sequence[MPCTensor], comm=None,
+                  triples_list: Optional[Sequence] = None) -> list:
+    """Round-shared secret*secret products over sibling MPCTensor pairs
+    (``gmw.products_many``: every pair's single open in ONE round).
+    ``kinds[i]`` is "mul" (elementwise, equal shapes) or "matmul" (batched,
+    contraction on the trailing pair).  ``keys[i]`` derives the pair's
+    triple when ``triples_list`` leaves it None (``beaver.gen_matmul`` or
+    ``gen_arith`` on the key itself, as the reference).  Each product of
+    two ``frac_bits`` operands is truncated back once."""
+    comm = comm or comm_lib.SimComm()
+    n_t = len(xs)
+    triples_list = list(triples_list) if triples_list is not None else [None] * n_t
+    keys = list(keys)
+    if not (len(kinds) == n_t == len(ys) == len(keys) == len(triples_list)):
+        raise ValueError(
+            f"products_many: mismatched lengths kinds={len(kinds)} xs={n_t} "
+            f"ys={len(ys)} keys={len(keys)} triples={len(triples_list)}")
+    specs = []
+    for kind, key, x, y, tri in zip(kinds, keys, xs, ys, triples_list):
+        assert x.frac_bits == y.frac_bits
+        if tri is None:
+            n_parties = x.data.shape[0]
+            if kind == "matmul":
+                tri = beaver.gen_matmul(key, x.shape, y.shape, n_parties=n_parties)
+            elif kind == "mul":
+                assert x.shape == y.shape, (x.shape, y.shape)
+                tri = beaver.gen_arith(key, x.shape, n_parties=n_parties)
+            else:
+                raise ValueError(f"unknown product kind {kind!r}")
+        specs.append((kind, x.data, y.data, tri))
+    rets = gmw.products_many(specs, comm)
+    return [MPCTensor(r, x.frac_bits).truncate() for r, x in zip(rets, xs)]
+
+
 MPCTensor.relu_many = staticmethod(relu_many)
+MPCTensor.products_many = staticmethod(products_many)
+MPCTensor.stack = staticmethod(stack)

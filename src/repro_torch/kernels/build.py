@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gmw_round.cu", "ring_matmul.cu", "bitpack.cu")
+SOURCES = ("gmw_round.cu", "ring_matmul.cu", "ring_matmul_ss.cu", "bitpack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

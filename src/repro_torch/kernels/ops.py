@@ -35,6 +35,10 @@ the card (design notes in the CUDA sources):
   max(bytes, 8 per x and output value and 4 per weight, over 3.35 TB/s;
   26 int8 digit-plane products, the fewest a byte-digit scheme needs,
   over the 1979 TOP/s int8 tensor cores; the kernel issues 30).
+- ``ring_matmul_ss``: no Pallas kernel; the reference's jnp einsum of
+  ``core/ring_linalg.py:72`` ``matmul_ring`` (secret x secret, mod 2^64);
+  max(bytes, 8 per x, y and output value, over 3.35 TB/s; 36 u8 byte-plane
+  products over the 1979 TOP/s int8 tensor cores).
 - ``pack`` and ``pack_ring``: ``kernels/bitpack.py:44`` ``pack_pallas``;
   bytes, each value read once (4 or 8 bytes) and 4 per word written;
   ``pack_ring``'s masked form (the A2B round's ``packed ^ mask``) also
@@ -66,6 +70,7 @@ _SIGNATURES = {
     "hb_cone_step": ("gmw_round.cu",
                      [_P, _P, _I, _P, _I] + [_P] * 9 + [_I] * 10 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
+    "hb_ring_matmul_ss": ("ring_matmul_ss.cu", [_P] * 3 + [_I] * 4 + [_P]),
     "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
     "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P, _P]),
     "hb_unpack": ("bitpack.cu", [_P, _I, _I, _I, _I, _P, _P]),
@@ -466,8 +471,31 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """int64 ring [B, M, K] @ int64 ring [B, K, N] mod 2^64 -> int64
+    [B, M, N]: every batch cell in one kernel launch."""
+    if _on_cpu(x):
+        return ref.ring_matmul_ss(x, y)
+    _check("ring_matmul_ss", [x, y], torch.int64)
+    if x.ndim != 3 or y.ndim != 3 or x.shape[0] != y.shape[0] \
+            or x.shape[2] != y.shape[1]:
+        raise ValueError(f"ring_matmul_ss: shapes {tuple(x.shape)} @ {tuple(y.shape)}")
+    b, m, k = x.shape
+    n = y.shape[2]
+    if b * ((m + 31) // 32) * ((n + 31) // 32) >= 2 ** 31:
+        raise ValueError(f"ring_matmul_ss: [{b}, {m}, {n}] exceeds the kernel's grid")
+    out = torch.empty((b, m, n), dtype=torch.int64, device=x.device)
+    if b and m and n:
+        if k == 0:
+            return out.zero_()
+        _launch("hb_ring_matmul_ss", x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                b, m, k, n)
+        ring_matmul_ss.launches += 1
+    return out
+
+
 KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, cone_step,
-           ring_matmul, pack, pack_ring, unpack)
+           ring_matmul, ring_matmul_ss, pack, pack_ring, unpack)
 for _k in KERNELS:
     _k.launches = 0
 pack_ring.masked = 0

@@ -1,4 +1,4 @@
-"""Model zoo of the port: ResNet."""
-from . import resnet
+"""Model zoo of the port: ResNet and the dense decoder LM."""
+from . import lm, resnet
 
-__all__ = ["resnet"]
+__all__ = ["lm", "resnet"]

@@ -49,7 +49,8 @@ def test_cuda_kernels_equal_plain_versions():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"beaver_and": 3, "ks_mask": 5,
                                    "ks_combine": 3, "ks_step": 0, "ks_level": 0,
-                                   "cone_step": 0, "ring_matmul": 3, "pack": 0,
+                                   "cone_step": 0, "ring_matmul": 3,
+                                   "ring_matmul_ss": 0, "pack": 0,
                                    "pack_ring": 0, "unpack": 0}
 
 
@@ -492,3 +493,80 @@ def test_cuda_graph_replay_equals_eager_and_cpu(plan_name, monkeypatch):
             assert torch.equal(r.data, g.data)
             assert torch.equal(r.data, h)     # unchanged by the later replays
     assert not torch.equal(replay[1]["outs"][0].data, replay[2]["outs"][0].data)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_matmul_ss_shapes_and_fold():
+    """The secret x secret ring matmul against its plain version: the LM
+    path's products (16 heads x 2 parties of 8 x 64 @ 64 x 8 and 8 x 8 @
+    8 x 64, and the Beaver combine's K-doubled [E | A] @ [B ; F]), a longer
+    attention (512 x 64 @ 64 x 512 and 512 x 512 @ 512 x 64), ragged tiles,
+    K past the 4096 fold with every byte 0xFF (each shift's largest sum),
+    K = 0; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(12)
+
+    def ring(*shape):
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=gen,
+                             dtype=torch.int64).cuda()
+
+    shapes = [(32, 8, 64, 8), (32, 8, 8, 64), (32, 8, 128, 8), (32, 8, 16, 64),
+              (16, 512, 64, 512), (16, 512, 512, 64), (3, 33, 70, 31), (1, 1, 1, 1),
+              (2, 40, 4096 + 4096 + 320, 9)]
+    ops.reset_launches()
+    for b, m, k, n in shapes:
+        x, y = ring(b, m, k), ring(b, k, n)
+        assert torch.equal(ops.ring_matmul_ss(x, y), tref.ring_matmul_ss(x, y)), (b, m, k, n)
+    ones = torch.full((2, 5, 16512), -1, dtype=torch.int64, device="cuda")
+    ones_y = torch.full((2, 16512, 3), -1, dtype=torch.int64, device="cuda")
+    assert torch.equal(ops.ring_matmul_ss(ones, ones_y),
+                       torch.full((2, 5, 3), 16512, dtype=torch.int64, device="cuda"))
+    empty = ops.ring_matmul_ss(ring(2, 3, 0), ring(2, 0, 4))
+    assert torch.equal(empty, torch.zeros_like(empty))
+    torch.cuda.synchronize()
+    assert ops.ring_matmul_ss.launches == len(shapes) + 1
+
+
+@pytest.mark.cuda
+def test_cuda_lm_smoke_equals_cpu():
+    """One block of the smoke LM (2 sibling streams, exact and per-site
+    reduced) through ``compile(...)`` on the card equals the same call on
+    the CPU share for share, and launches ring_matmul_ss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.core import comm, prng
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("qwen1.5-0.5b-smoke"), n_layers=1)
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    plan = lm.trace(params, cfg, 1, 4)
+    gen = torch.Generator().manual_seed(13)
+    hs = [torch.randn((1, 4, cfg.d_model), generator=gen) * 0.5 for _ in range(2)]
+    for kms in (None, [(22, 0), (22, 6)]):
+        run_plan = plan if kms is None else plan.with_hb(api.HBConfig(
+            tuple(api.HBLayer(k=k, m=m) for k, m in kms), plan.group_elements))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            cc = comm.CoalescingComm()
+            model = api.compile(None, lm.params_from_jax(_to_numpy(params), dev),
+                                cfg, run_plan,
+                                api.Session(key=0, comm=cc, device=dev))
+            xs = [model.encrypt(prng.PRNGKey(2 + i, dev), h) for i, h in enumerate(hs)]
+            ops.reset_launches()
+            outs[dev] = model(xs, key=prng.PRNGKey(3, dev))
+            sched = run_plan.schedule(streams=2)
+            assert (cc.n_rounds, cc.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
+        torch.cuda.synchronize()
+        assert ops.ring_matmul_ss.launches == 8     # 2 per matmul site and stream
+        for a, b in zip(outs["cpu"], outs["cuda"]):
+            assert torch.equal(a.data, b.data.cpu())
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -359,3 +359,115 @@ def test_triple_pool_order_and_exhaustion():
     with pytest.raises(errors.TriplePoolExhausted):
         pool.relu_triples(8, 4)
     assert tbeaver.InlineTTP().relu_triples(8, 4) is None
+
+
+# ---------------------------------------------------------------------------
+# Secret x secret products (the LM's Beaver opens)
+# ---------------------------------------------------------------------------
+
+def _ring_pair(seed: int, shape):
+    """The same uniform ring values in both packages' layouts."""
+    u = np.random.default_rng(seed).integers(0, 2 ** 64, shape, dtype=np.uint64)
+    return jring.from_uint64_np(u), tring.from_uint64_np(u, "cpu")
+
+
+@pytest.mark.parametrize("lead,m,k,n", [((), 5, 7, 3), ((3,), 8, 64, 8),
+                                        ((2, 4), 8, 8, 16), ((1,), 2, 8200, 3)])
+def test_matmul_ring_bit_identical(lead, m, k, n):
+    """``ring_linalg.matmul_ring`` (the ``ring_matmul_ss`` plain version on
+    the CPU) equals the reference's digit-plane einsum, K = 8200 past the
+    reference's 8192 chunk included."""
+    from repro.core import ring_linalg as jlinalg
+    from repro_torch.core import ring_linalg as tlinalg
+
+    jx, tx = _ring_pair(10, lead + (m, k))
+    jy, ty = _ring_pair(11, lead + (k, n))
+    _same(jlinalg.matmul_ring(jx, jy), tlinalg.matmul_ring(tx, ty))
+
+
+def test_matmul_ring_rejects_unaligned_batch():
+    from repro_torch.core import ring_linalg as tlinalg
+
+    with pytest.raises(ValueError):
+        tlinalg.matmul_ring(torch.zeros((2, 3, 4), dtype=torch.int64),
+                            torch.zeros((3, 4, 5), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("x_shape,y_shape", [((4, 8, 16), (4, 16, 8)),
+                                             ((1, 2, 4, 3), (1, 2, 3, 4))])
+def test_gen_matmul_bit_identical(x_shape, y_shape):
+    jt = jbeaver.gen_matmul(jax.random.PRNGKey(5), x_shape, y_shape)
+    tt = tbeaver.gen_matmul(prng.PRNGKey(5, "cpu"), x_shape, y_shape)
+    for f in ("a", "b", "c"):
+        _same(getattr(jt, f), getattr(tt, f))
+
+
+def test_beaver_matmul_and_products_many_bit_identical():
+    """``beaver_matmul`` alone, then ``products_many`` with a mul and two
+    matmuls of different shapes in ONE coalesced round: shares equal the
+    reference's, counters equal ``simulate_open``."""
+    jx, tx = _ring_pair(20, (2, 3, 4, 5))
+    jy, ty = _ring_pair(21, (2, 3, 5, 6))
+    jt = jbeaver.gen_matmul(jax.random.PRNGKey(7), (3, 4, 5), (3, 5, 6))
+    tt = tbeaver.gen_matmul(prng.PRNGKey(7, "cpu"), (3, 4, 5), (3, 5, 6))
+    _same(jgmw.beaver_matmul(jx, jy, jt, jcomm.SimComm()),
+          tgmw.beaver_matmul(tx, ty, tt, tcomm.SimComm()))
+    ju, tu = _ring_pair(22, (2, 7, 9))
+    jv, tv = _ring_pair(23, (2, 7, 9))
+    jm = jbeaver.gen_arith(jax.random.PRNGKey(8), (7, 9))
+    tm = tbeaver.gen_arith(prng.PRNGKey(8, "cpu"), (7, 9))
+    jw, tw = _ring_pair(24, (2, 9, 2))
+    jt2 = jbeaver.gen_matmul(jax.random.PRNGKey(9), (7, 9), (9, 2))
+    tt2 = tbeaver.gen_matmul(prng.PRNGKey(9, "cpu"), (7, 9), (9, 2))
+    jcc = jcomm.CoalescingComm(jcomm.CountingComm())
+    tcc = tcomm.CoalescingComm(tcomm.CountingComm())
+    jr = jgmw.products_many([("matmul", jx, jy, jt), ("mul", ju, jv, jm),
+                             ("matmul", ju, jw, jt2)], jcc)
+    tr = tgmw.products_many([("matmul", tx, ty, tt), ("mul", tu, tv, tm),
+                             ("matmul", tu, tw, tt2)], tcc)
+    for a, b in zip(jr, tr):
+        _same(a, b)
+    want = schedule.simulate_open([3 * 4 * 5 + 3 * 5 * 6, 2 * 7 * 9, 7 * 9 + 9 * 2])
+    assert tcc.n_rounds == jcc.n_rounds == want.n_rounds == 1
+    assert tcc.bytes_tx == jcc.bytes_tx == want.bytes_tx
+    assert tcc.round_parts == [3]
+
+
+def test_mpc_tensor_structural_ops_and_products_bit_identical():
+    """transpose, swapaxes, repeat, indexing, stack, concat, and the
+    tensor-level ``mul``/``matmul``/``products_many`` (inline triples from
+    the key, one truncation) equal the reference's."""
+    from repro.core import mpc_tensor as jmt
+    from repro_torch.core import mpc_tensor as tmt
+
+    x = np.random.default_rng(30).uniform(-2, 2, (2, 3, 4, 5)).astype(np.float32)
+    y = np.random.default_rng(31).uniform(-2, 2, (2, 3, 5, 4)).astype(np.float32)
+    jX = jmt.MPCTensor.from_plain(jax.random.PRNGKey(1), x)
+    jY = jmt.MPCTensor.from_plain(jax.random.PRNGKey(2), y)
+    tX = tmt.MPCTensor.from_plain(prng.PRNGKey(1, "cpu"), torch.from_numpy(x))
+    tY = tmt.MPCTensor.from_plain(prng.PRNGKey(2, "cpu"), torch.from_numpy(y))
+    _same(jX.data, tX.data)
+    pairs = [(jX.transpose(0, 2, 1, 3), tX.transpose(0, 2, 1, 3)),
+             (jX.transpose((3, 1, 2, 0)), tX.transpose((3, 1, 2, 0))),
+             (jX.swapaxes(-1, -2), tX.swapaxes(-1, -2)),
+             (jX.repeat(2, axis=1), tX.repeat(2, axis=1)),
+             (jX[..., :2], tX[..., :2]), (jX[1], tX[1]), (jX[:, 1:, 3], tX[:, 1:, 3]),
+             (jmt.stack([jX, jX.swapaxes(0, 0)], axis=0),
+              tmt.stack([tX, tX.swapaxes(0, 0)], axis=0)),
+             (jmt.stack([jX, jX], axis=-1), tmt.stack([tX, tX], axis=-1)),
+             (jmt.concat([jX, jX[..., :1]], axis=-1), tmt.concat([tX, tX[..., :1]], axis=-1))]
+    for j, t in pairs:
+        assert tuple(t.shape) == tuple(j.shape)
+        _same(j.data, t.data)
+    _same(jX.matmul(jY, jax.random.PRNGKey(3)).data,
+          tX.matmul(tY, prng.PRNGKey(3, "cpu")).data)
+    _same(jX.mul(jX, jax.random.PRNGKey(4)).data, tX.mul(tX, prng.PRNGKey(4, "cpu")).data)
+    jcc, tcc = jcomm.CoalescingComm(), tcomm.CoalescingComm()
+    jr = jmt.products_many(["mul", "matmul"], [jax.random.PRNGKey(5), jax.random.PRNGKey(6)],
+                           [jX, jX], [jX, jY], comm=jcc)
+    tr = tmt.products_many(["mul", "matmul"], [prng.PRNGKey(5, "cpu"), prng.PRNGKey(6, "cpu")],
+                           [tX, tX], [tX, tY], comm=tcc)
+    for j, t in zip(jr, tr):
+        _same(j.data, t.data)
+    assert tcc.n_rounds == jcc.n_rounds == 1 and tcc.bytes_tx == jcc.bytes_tx
+    np.testing.assert_allclose(tr[1].reveal_np(), x @ y, atol=1e-3)

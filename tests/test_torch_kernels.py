@@ -356,6 +356,49 @@ def test_ring_matmul_digits_folds_before_int32_overflows():
         tref.ring_matmul_digits(x_t, w_t, fold=FOLD_PAST)
 
 
+FOLD_PAST_SS = tref.FOLD_K_SS + 64     # past the ss kernel's int32 fold
+
+
+@pytest.mark.parametrize("b,m,k,n", [(1, 1, 1, 1), (32, 8, 64, 8), (32, 8, 16, 64),
+                                     (3, 5, 33, 7), (2, 3, 0, 4), (1, 2, FOLD_PAST_SS, 3)])
+def test_ring_matmul_ss_plain_vs_digits_and_ref(b, m, k, n):
+    """The secret x secret product's plain version and the kernel's own
+    byte-plane arithmetic (``ring_matmul_ss_digits``: 36 u8 plane
+    products, int32 shift sums folded every 4096 of K) against the
+    reference's ``matmul_ring`` and Python ints: all-0x00, 0x80 and 0xFF
+    bytes among the values, K = 0 and K past the fold."""
+    rng = np.random.default_rng(6)
+    x_np = rng.integers(0, 2 ** 64, (b, m, k), dtype=np.uint64)
+    y_np = rng.integers(0, 2 ** 64, (b, k, n), dtype=np.uint64)
+    x_np.reshape(-1)[:3] = [0, 2 ** 64 - 1, 0x8080808080808080][:x_np.size]
+    y_np.reshape(-1)[:3] = [2 ** 64 - 1, 0, 2 ** 63][:y_np.size]
+    x_t, y_t = tring.from_uint64_np(x_np, "cpu"), tring.from_uint64_np(y_np, "cpu")
+    got = tring.to_uint64_np(tref.ring_matmul_ss(x_t, y_t))
+    np.testing.assert_array_equal(
+        tring.to_uint64_np(tref.ring_matmul_ss_digits(x_t, y_t)), got)
+    np.testing.assert_array_equal(tring.to_uint64_np(ops.ring_matmul_ss(x_t, y_t)), got)
+    jx, jy = jring.from_uint64_np(x_np), jring.from_uint64_np(y_np)
+    np.testing.assert_array_equal(got, jring.to_uint64_np(jlinalg.matmul_ring(jx, jy)))
+    oracle = np.einsum("bmk,bkn->bmn", x_np.astype(object), y_np.astype(object)) % (1 << 64)
+    np.testing.assert_array_equal(got, np.asarray(oracle, dtype=np.uint64).reshape(b, m, n))
+
+
+def test_ring_matmul_ss_digits_folds_before_int32_overflows():
+    """Every byte 0xFF on both sides: shift 7's sum grows by 8 * 255^2 per
+    k, so one sum over more than 4128 of K leaves int32.  The fold at 4096
+    keeps the result exact; without it the plain arithmetic raises, as the
+    kernel's accumulators would overflow."""
+    x_np = np.full((1, 2, FOLD_PAST_SS), 2 ** 64 - 1, np.uint64)
+    y_np = np.full((1, FOLD_PAST_SS, 3), 2 ** 64 - 1, np.uint64)
+    x_t, y_t = tring.from_uint64_np(x_np, "cpu"), tring.from_uint64_np(y_np, "cpu")
+    oracle = (x_np[0].astype(object) @ y_np[0].astype(object)) % (1 << 64)
+    np.testing.assert_array_equal(
+        tring.to_uint64_np(tref.ring_matmul_ss_digits(x_t, y_t))[0],
+        oracle.astype(np.uint64))
+    with pytest.raises(OverflowError):
+        tref.ring_matmul_ss_digits(x_t, y_t, fold=FOLD_PAST_SS)
+
+
 def test_wrappers_take_the_plain_version_on_cpu():
     rng = np.random.default_rng(5)
     ops.reset_launches()
@@ -391,7 +434,7 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert ops.pack_ring.masked == 0
     assert ops.launch_counts() == {name: 0 for name in (
         "beaver_and", "ks_mask", "ks_combine", "ks_step", "ks_level",
-        "cone_step", "ring_matmul", "pack", "pack_ring", "unpack")}
+        "cone_step", "ring_matmul", "ring_matmul_ss", "pack", "pack_ring", "unpack")}
 
 
 def _meta(dtype, *shape):
@@ -427,6 +470,8 @@ _OFF_CPU_CALLS = {
                               _meta(_I32, 2, 3, 4), None, (1, 2, 1),
                               _meta(_I32, 2, 2, 4), _meta(_I32, 2, 2, 4))),
     "ring_matmul": lambda: ops.ring_matmul(_meta(_I64, 2, 3), _meta(_I32, 3, 2)),
+    "ring_matmul_ss": lambda: ops.ring_matmul_ss(_meta(_I64, 2, 2, 3),
+                                                 _meta(_I64, 2, 3, 2)),
     "pack": lambda: ops.pack(_meta(_I32, 2, 64), 1),
     "pack_ring": (
         lambda: ops.pack_ring(_meta(_I64, 2, 64), 64, 0),

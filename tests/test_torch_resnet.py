@@ -314,6 +314,8 @@ def test_port_imports_neither_jax_nor_reference():
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
     assert ROOT / "src" / "repro_torch" / "runtime" / "loop.py" in files
+    assert ROOT / "src" / "repro_torch" / "models" / "lm.py" in files
+    assert ROOT / "src" / "repro_torch" / "nn" / "approx" / "pwl.py" in files
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

@@ -106,7 +106,20 @@ Phases (any failure raises, and the script exits non-zero):
 8. stem breakdown: the exact plan's stem layer for 4 requests timed by
    part (conv; the triples' offline generation into a pool; the online
    protocol from the pool; the adder dense and cone-pruned), and the
-   device's busy share of one traced online run of it (conv + protocol).
+   device's busy share of one traced online run of it (conv + protocol);
+9. search: the paper's §4.1 on full-width ResNet-18, as
+   ``examples/private_inference.py`` runs it (``search_phase``): 512
+   synthetic images on the card, ``finetune`` with the exact config,
+   ``search_eco`` (its accuracy equal to the baseline) and the 8/64
+   ``search_budget`` over widths (6, 8) (its config within the budget),
+   one candidate's evaluation profiled, ``simulated_hb_relu`` on the card
+   equal to the CPU at the stem's activations; then the budget search's
+   plan served to 4 requests through ``online_calls`` (every call's rounds
+   and bytes equal to ``plan.schedule(streams=4)`` and to the search's
+   ``objective_value``, exactly the plan's launches per kernel,
+   ``resnet_shape_launches``), and each ReLU kernel against its plain
+   version at the plan's own shapes (``search_kernel_phase``), with its
+   sum per call.
 
 Output: a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -171,6 +184,7 @@ PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "lm-exact": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
                 "lm-reduced": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
                 "lm-relu": _RELU | _DENSE,
+                "search": _RELU | {"ring_matmul"} | _DENSE,
                 "ragged-merge": _RELU | {"pack"} | _DENSE,
                 "ragged-merge-cone": _RELU | {"pack"} | _CONE}
 # each wrapper's kernel, by its symbol in a profiler trace (a captured
@@ -180,6 +194,10 @@ TRACE_KERNELS = {k: f"{k}_kernel" for k in ("beaver_and", "ks_mask", "ks_combine
                                             "ring_matmul", "ring_matmul_ss",
                                             "unpack", "pack")}
 TRACE_KERNELS["pack_ring"] = "pack_kernel"      # one template serves both
+# the wrappers, as ``lm_shape_launches`` / ``resnet_shape_launches`` key them
+SHAPE_KERNELS = ("beaver_and", "ks_mask", "ks_step", "ks_combine", "ks_level",
+                 "cone_step", "pack", "pack_ring", "unpack", "ring_matmul",
+                 "ring_matmul_ss")
 # timed online calls per plan and loop, after one warm-up call; the pool
 # holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
 # each request's served to the generator loop and to the replay in turn
@@ -625,23 +643,23 @@ def cone_step_inputs(words, w: int, r: int, n_words: int, parties: int = 2):
 
 
 def adder_records(record, gen, w: int, n_words: int, shifts, into, path,
-                  lm: bool = False) -> None:
+                  shape_key: str = None) -> None:
     """The dense adder's kernels at width w over W = ``n_words`` words (P =
     2), each against its plain version: beaver_and plain and in its
     opening form (the sent payload and the peer's halves in the received
     round buffer, as the adder's initial AND runs it), ks_mask at shift 1,
     ks_combine, and ks_step (level l's combine fused with level l + 1's
-    mask; g in place) at each of ``shifts``.  With ``lm`` each record the
-    dense adder launches is keyed ``lm_shape`` as ``lm_shape_launches``
-    counts it."""
+    mask; g in place) at each of ``shifts``.  With ``shape_key`` each record
+    the dense adder launches is keyed so (``lm_shape``, ``search_shape``), as
+    ``lm_shape_launches`` / ``resnet_shape_launches`` count it."""
     from repro_torch.kernels import ops, ref
 
     P = 2
 
     def add(*args, key=None, **kwargs):
         row = record(*args, into=into, path=path, **kwargs)
-        if lm and key is not None:
-            row["lm_shape"] = key
+        if shape_key and key is not None:
+            row[shape_key] = key
 
     sel = torch.tensor([-1, 0], dtype=torch.int32, device="cuda")
     d, e, a, b, c = (words(gen, P, w, n_words) for _ in range(5))
@@ -832,7 +850,8 @@ def kernel_phase(lm_setup_):
         for n_w in sorted({n_w for _, n_w in adder}):
             adder_records(record, gen, w, n_w,
                           tuple(1 << lvl for lvl in range(1, n_levels(w))), lm_rows,
-                          lm_path("ks_mask", lambda s: s[0] == w), lm=True)
+                          lm_path("ks_mask", lambda s: s[0] == w),
+                          shape_key="lm_shape")
     for k, m, e in sorted({s for c in lm_counts.values() for s in c["pack_ring"]},
                           reverse=True):
         x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
@@ -949,17 +968,45 @@ def _same_shares(name, a, b, what):
         raise AssertionError(f"{name}: {what}")
 
 
-def _profiled(fn, census=None):
-    """(busy s, span s, device ops, busy share, top) of one traced ``fn()``."""
+class NoDeviceTrace(AssertionError):
+    """A profiler trace that holds no device activity."""
+
+
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.02
+
+
+def _profiled(fn, census=None, again: bool = False, optional: bool = False):
+    """(busy s, span s, device ops, busy share, top) of one traced ``fn()``.
+    A trace can come back with no device activity although the host
+    launched work (short traces, such as the replay's input refill, have
+    on the card); each trace therefore keeps ``PROFILE_PAD_S`` of idle time
+    on both sides of ``fn()``.  With ``again`` (for an ``fn`` that may run
+    twice) an empty trace is taken again, up to ``PROFILE_TRIES`` traces;
+    with ``optional`` as well, the last empty trace gives None (the caller
+    writes "not measured") where it would raise."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        try:
+            return _profiled_once(fn, census)
+        except NoDeviceTrace as e:
+            if not again or (attempt == PROFILE_TRIES and not optional):
+                raise
+            print(f"{e} (trace {attempt} of {PROFILE_TRIES})", flush=True)
+    return None
+
+
+def _profiled_once(fn, census=None):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
-    busy_us, span_us, n_ops, top = trace_busy(prof, census)
+        time.sleep(PROFILE_PAD_S)
+    busy_us, span_us, n_ops, top, lag_us = trace_busy(prof, census)
     return {"span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
             "device_ops": n_ops, "device_busy_share": busy_us / span_us,
-            "top_device_ops_us": top}
+            "top_device_ops_us": top, "min_launch_lag_us": lag_us}
 
 
 def host_profile(fn, top=8):
@@ -1004,7 +1051,7 @@ def replay_census(name, census, launches):
 
 
 def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
-                 profile=False):
+                 profile=False, want_launches=None, keep_reveal=False):
     """One plan's offline phase, then each online call twice, on the same
     request key and the same triples (the provider rolled back between
     them): on the generator loop (``HB_ROUND_LOOP=python``), then on the
@@ -1020,7 +1067,10 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
     result held across the next replay unchanged.  Then one replay (and
     with ``profile`` one eager call) under torch.profiler, the replay's
     kernels counted by name against its capture; the replay's input
-    refill and the eager key split timed alone."""
+    refill and the eager key split timed alone.  ``want_launches`` (a
+    kernel -> launches per call dict, read from a plan) replaces the
+    plan-name tables as the eager calls' count to hold; ``keep_reveal``
+    returns the last eager call's revealed logits under ``reveal``."""
     from repro_torch import api
     from repro_torch.core import comm as comm_lib, prng
     from repro_torch.models import resnet
@@ -1047,7 +1097,9 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
     keys = [prng.PRNGKey(1000 + i, "cuda") for i in range(requests)]
     sched = plan.schedule(streams=STREAMS)
     want_adder = None
-    if expect is not None:
+    if want_launches is not None:
+        want_adder = dict(want_launches, pack_ring_masked=want_launches["pack_ring"])
+    elif expect is not None:
         want_adder = adder_launches(name)
         want_adder["unpack"] = sum(sign_plane_launches(name).values())
         want_adder["pack_ring"] = want_adder["pack_ring_masked"] = want_adder["unpack"]
@@ -1103,6 +1155,8 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
            "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
            "max_abs_err_vs_plaintext": max(errs), "launches": counts,
            "pack_ring_masked": masked}
+    if keep_reveal:
+        out["reveal"] = torch.cat([o.reveal() for o in eager[-1]["outs"]])
     for loop, runs in (("eager", eager), ("replay", replays)):
         if runs:
             walls = [r["wall"] for r in runs]
@@ -1123,7 +1177,7 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         entry = model._replay_entry(enc)
         srcs = [t.clone() for t in entry.statics]
         refill_ms = statistics.median(_event_ms(lambda: entry.load(srcs), 7))
-        refill = _profiled(lambda: entry.load(srcs))
+        refill = _profiled(lambda: entry.load(srcs), again=True, optional=True)
         refill_bytes = sum(2 * t.numel() * t.element_size() for t in srcs)
         del srcs
         split_s = []
@@ -1143,19 +1197,22 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         out["replay"].update({
             "trace_s": stats["trace_s"], "compile_s": stats["compile_s"],
             "captured_launches": stats["launches"], "refill_ms": refill_ms,
-            "refill_device_ops": refill["device_ops"], "refill_bytes": refill_bytes,
+            "refill_device_ops": refill and refill["device_ops"],
+            "refill_bytes": refill_bytes,
             "refill_bound_ms": refill_bytes / HBM_BYTES_PER_S * 1e3,
             "key_split_s": statistics.median(split_s), "profiled": traced,
             "host_profile": host})
         rp = out["replay"]
+        refill_ops = (f"{rp['refill_device_ops']} launches" if refill else
+                      "launches not measured (every trace came back empty)")
         print(f"main path {name} on the captured replay: median "
               f"{rp['online_median_s']:.4f} s, min {rp['online_min_s']:.4f}, max "
               f"{rp['online_max_s']:.4f} over {calls} warm calls (shares equal "
               f"the eager calls', counters the schedule, captured launches the "
               f"eager call's); capture {rp['trace_s']:.3f} s, instantiation, "
               f"upload and first replay {rp['compile_s']:.3f} s; input refill "
-              f"{refill_ms:.4f} ms on the device in {rp['refill_device_ops']} "
-              f"launches for {refill_bytes} B (bound {rp['refill_bound_ms']:.4f} "
+              f"{refill_ms:.4f} ms on the device in {refill_ops} for "
+              f"{refill_bytes} B (bound {rp['refill_bound_ms']:.4f} "
               f"ms); eager key split {1e3 * rp['key_split_s']:.4f} ms; one replay "
               f"under the profiler: {traced['device_ops']} device ops busy "
               f"{traced['device_busy_s']:.4f} s of a {traced['span_s']:.4f} s trace "
@@ -1229,9 +1286,7 @@ def lm_shape_launches(plan, cfg) -> dict:
     whose H (MK + KN) elements the open carries."""
     from repro_torch.core.schedule import n_levels
 
-    out = {k: {} for k in ("beaver_and", "ks_mask", "ks_step", "ks_combine",
-                           "ks_level", "cone_step", "pack", "pack_ring", "unpack",
-                           "ring_matmul", "ring_matmul_ss")}
+    out = {k: {} for k in SHAPE_KERNELS}
 
     def add(kernel, shape, n=1):
         out[kernel][shape] = out[kernel].get(shape, 0) + n
@@ -1476,10 +1531,13 @@ def merge_phase(flush):
 
 
 def trace_busy(prof, census=None):
-    """(busy us, span us, device ops, top) of one profiler trace: the union
-    of the device's kernel, memcpy and memset intervals, the span from the
-    trace's first event to its last, and the 8 device-op names with the
-    most summed time ([name, us, count], the name cut to 60 characters).
+    """(busy us, span us, device ops, top, lag us) of one profiler trace:
+    the union of the device's kernel, memcpy and memset intervals, the span
+    from the trace's first event to its last, the 8 device-op names with
+    the most summed time ([name, us, count], the name cut to 60
+    characters), and the least time from a host-side launch to the start of
+    its device op (below 0 where the trace's device clock runs ahead of the
+    host's; None where no device op is correlated with a launch).
     ``census``, a dict, gets every device op's full name and count."""
     path = os.path.join(ROOT, "build", "profile_trace.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1503,8 +1561,14 @@ def trace_busy(prof, census=None):
             census[str(e.get("name"))] = census.get(str(e.get("name")), 0) + 1
     top = sorted(([n, us, c] for n, (us, c) in by_name.items()),
                  key=lambda r: -r[1])[:8]
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
     if not device:
-        raise AssertionError("the profiler traced no device activity")
+        raise NoDeviceTrace(f"the profiler traced no device activity "
+                            f"({len(launches)} host-side CUDA runtime calls traced)")
+    lags = [float(e["ts"]) - launches[e["args"]["correlation"]] for e in ops
+            if e.get("args", {}).get("correlation") in launches]
     busy, (start, end) = 0.0, device[0]
     for a, b in device[1:]:
         if a > end:
@@ -1514,7 +1578,7 @@ def trace_busy(prof, census=None):
             end = max(end, b)
     busy += end - start
     span = max(b for _, b in timed) - min(a for a, _ in timed)
-    return busy, span, len(device), top
+    return busy, span, len(device), top, min(lags, default=None)
 
 
 def stem_breakdown_phase():
@@ -1590,6 +1654,269 @@ def stem_breakdown_phase():
     return out
 
 
+# The search path (the paper's §4.1, as examples/private_inference.py runs
+# it): ResNet-18 finetuned on synthetic images, HummingBird-eco and -b on
+# the validation images, the budget search's plan served
+SEARCH_IMAGES, SEARCH_TRAIN, SEARCH_VAL = 512, (0, 384), (384, 448)
+SEARCH_SERVE = 448                      # the STREAMS served images start here
+SEARCH_EPOCHS, SEARCH_BATCH, SEARCH_LR = 4, 64, 3e-3
+SEARCH_BUDGET, SEARCH_BITS = 8 / 64, (6, 8)
+
+
+def resnet_shape_launches(plan) -> dict:
+    """Each kernel's launches per ResNet-18 call of a dense plan, by shape,
+    read from the plan: per ReLU call of width w > 0 (the ``STREAMS``
+    requests merged into E = 4 x its elements, W = E / 32 words), one
+    masked pack_ring at (k, m, E) and one unpack of the sign plane at E;
+    for w > 1 the dense adder's beaver_and, ks_mask and ks_combine at (w,
+    W) and ks_step at (w, W, 2^l) for each level l > 0; ring_matmul per
+    ``RING_MATMUL_SHAPES``."""
+    from repro_torch.core.schedule import n_levels
+
+    if plan.cone:
+        raise ValueError("resnet_shape_launches counts the dense adder only")
+    out = {k: {} for k in SHAPE_KERNELS}
+
+    def add(kernel, shape, n=1):
+        out[kernel][shape] = out[kernel].get(shape, 0) + n
+
+    for c in plan.calls:
+        layer = plan.hb.layers[c.group]
+        if layer.width == 0:
+            continue
+        e = STREAMS * c.n_elements
+        n_words = (e + 31) // 32
+        add("pack_ring", (layer.k, layer.m, e))
+        add("unpack", e)
+        if layer.width < 2:
+            continue
+        for k in ("beaver_and", "ks_mask", "ks_combine"):
+            add(k, (layer.width, n_words))
+        for lvl in range(1, n_levels(layer.width)):
+            add("ks_step", (layer.width, n_words, 1 << lvl))
+    for m, k, n, c in RING_MATMUL_SHAPES:
+        add("ring_matmul", (m, k, n), c)
+    return out
+
+
+def search_kernel_phase(by_shape: dict) -> list:
+    """Each ReLU kernel against its plain version at the found plan's own
+    shapes (``resnet_shape_launches``): the dense adder at every (w, W) and
+    shift, masked pack_ring at every (k, m, E), unpack at every sign plane;
+    each record keyed ``search_shape``."""
+    from repro_torch.core.schedule import n_levels
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(4)
+    P = 2
+    rows = []
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+
+    def record(*args, into=rows, **kwargs):
+        return timed_record(into, scratch.zero_, *args, **kwargs)
+
+    for w, n_w in sorted(by_shape["ks_mask"], reverse=True):
+        adder_records(record, gen, w, n_w,
+                      tuple(1 << lvl for lvl in range(1, n_levels(w))), rows,
+                      "search", shape_key="search_shape")
+    for k, m, e in sorted(by_shape["pack_ring"], reverse=True):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
+                          dtype=torch.int64).cuda()
+        r = words(gen, P, k - m, (e + 31) // 32)
+        record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:44",
+               lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
+               8 * P * e + 8 * r.numel(), shape=f"P={P} E={e} k={k} m={m} masked",
+               path="search")["search_shape"] = (k, m, e)
+    for n in sorted(by_shape["unpack"], reverse=True):
+        packed = words(gen, P, 1, (n + 31) // 32)
+        record("unpack", "src/repro_torch/csrc/bitpack.cu",
+               "src/repro/kernels/bitpack.py:60",
+               lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
+               4 * packed.numel() + 4 * P * n,
+               shape=f"R={P} w=1 W={packed.shape[-1]} n={n}",
+               path="search")["search_shape"] = n
+    return rows
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def search_phase():
+    """The paper's search path on full-width ResNet-18 (``RESNET18``, seeded
+    weights at the reference's init scales), as
+    ``examples/private_inference.py`` runs it: ``SEARCH_IMAGES`` synthetic
+    images (``ImagePipeline``) on the card; ``finetune`` with the exact
+    config on the training images (4 epochs, batch 64, lr 3e-3); the
+    serving plan traced at batch 1; ``search_eco`` on the validation
+    images (its accuracy must equal the baseline) and ``search_budget`` at
+    ``SEARCH_BUDGET`` over ``SEARCH_BITS`` (its config must meet the
+    budget), both scored for ``STREAMS`` sibling streams; one candidate's
+    evaluation timed and profiled (host against device); the simulator on
+    the card against the CPU at the stem's full-width activations; then the
+    budget search's plan served to ``STREAMS`` requests (``online_calls``:
+    triples offline, both round loops, every call's rounds and bytes equal
+    to ``plan.schedule(streams=4)`` and to the search's ``objective_value``,
+    exactly the plan's launches per kernel), and every ReLU kernel held
+    against its plain version at the plan's shapes.  Returns (record,
+    kernel records, launches per kernel)."""
+    import torch.nn.functional as F
+
+    from repro_torch.api import LAN, WAN
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import prng
+    from repro_torch.data import ImagePipeline
+    from repro_torch.models import resnet
+    from repro_torch.search import finetune as ft, search_budget, search_eco, simulator
+
+    cfg = RESNET18
+
+    def afn(p, x, relu_fn=None):
+        return resnet.apply(p, x, cfg, relu_fn=relu_fn)
+
+    (xs, ys), data_s = _timed(lambda: ImagePipeline(n_classes=cfg.n_classes,
+                                                    hw=cfg.in_hw).take(SEARCH_IMAGES,
+                                                                       device="cuda"))
+    params = resnet.init(cfg, seed=0, device="cuda")
+    plan = resnet.trace(params, cfg, batch=1)
+    (params, losses), finetune_s = _timed(lambda: ft.finetune(
+        afn, params, xs[slice(*SEARCH_TRAIN)], ys[slice(*SEARCH_TRAIN)], plan.hb,
+        prng.PRNGKey(1, "cuda"), epochs=SEARCH_EPOCHS, batch=SEARCH_BATCH,
+        lr=SEARCH_LR))
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"search: finetune losses not finite: {losses}")
+    xv, yv = xs[slice(*SEARCH_VAL)], ys[slice(*SEARCH_VAL)]
+    base_acc = simulator.evaluate_accuracy(afn, params, xv, yv, plan.hb,
+                                           prng.PRNGKey(2, "cuda"))
+    print(f"search: {SEARCH_IMAGES} images in {data_s:.3f} s; finetune "
+          f"({len(losses)} steps) {finetune_s:.3f} s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; baseline accuracy {base_acc:.4f} on "
+          f"{xv.shape[0]} validation images", flush=True)
+    eco = search_eco(afn, params, xv, yv, plan, prng.PRNGKey(3, "cuda"),
+                     streams=STREAMS)
+    if not eco.accuracy == eco.baseline_accuracy == base_acc:
+        raise AssertionError(f"search_eco: accuracy {eco.accuracy}, baseline "
+                             f"{eco.baseline_accuracy} / {base_acc}")
+    print(f"search_eco: {[(l.k, l.m) for l in eco.config.layers]}, "
+          f"{eco.budget_fraction:.4f} of the bits, accuracy {eco.accuracy:.4f} "
+          f"(= baseline), {eco.nodes_visited} nodes, {eco.search_time_s:.3f} s, "
+          f"{eco.objective_value:.0f} B per call", flush=True)
+    visited = []
+    res = search_budget(afn, params, xv, yv, plan, prng.PRNGKey(4, "cuda"),
+                        budget=SEARCH_BUDGET, bit_choices=SEARCH_BITS,
+                        objective="bytes", streams=STREAMS, on_visit=visited.append)
+    found = res.plan
+    if not res.config.meets_budget(SEARCH_BUDGET) or found.hb != res.config:
+        raise AssertionError(f"search_budget: {res.config} misses {SEARCH_BUDGET}")
+    cands_per_s = len(visited) / res.search_time_s
+    lan = found.estimate(network=LAN, streams=STREAMS)
+    wan = found.estimate(network=WAN, streams=STREAMS)
+    print(f"search_budget: {[(l.k, l.m) for l in res.config.layers]}, "
+          f"{res.budget_fraction:.4f} of the bits, accuracy {res.accuracy:.4f} "
+          f"(drop {res.baseline_accuracy - res.accuracy:.4f}), {res.nodes_visited} "
+          f"nodes visited, {res.nodes_pruned} pruned, {len(visited)} candidates "
+          f"evaluated in {res.search_time_s:.3f} s ({cands_per_s:.2f} per s); "
+          f"{res.objective_value:.0f} B per call; estimate LAN {lan:.6f} s, "
+          f"WAN {wan:.6f} s", flush=True)
+    # one candidate's evaluation: the host's wall against the device's work
+    with simulator.deterministic():
+        walls = [_timed(lambda: simulator.evaluate_accuracy(
+            afn, params, xv, yv, res.config, prng.PRNGKey(4, "cuda")))[1]
+            for _ in range(3)]
+        cand = _profiled(lambda: simulator.evaluate_accuracy(
+            afn, params, xv, yv, res.config, prng.PRNGKey(4, "cuda")), again=True)
+    cand["wall_s"] = statistics.median(walls)
+    print(f"one candidate (the found config, {xv.shape[0]} images): "
+          f"{cand['wall_s']:.4f} s on the host clock; under the profiler "
+          f"{cand['device_ops']} device ops busy {cand['device_busy_s']:.4f} s of a "
+          f"{cand['span_s']:.4f} s trace = {100 * cand['device_busy_share']:.1f}%; "
+          f"most device time {cand['top_device_ops_us']}", flush=True)
+    # the simulator on the card against the CPU at the stem's activations
+    stem = []
+
+    def keep_stem(v, g):
+        if g == 0:
+            stem.append(v)
+        return F.relu(v)
+
+    with torch.no_grad():
+        afn(params, xv, relu_fn=keep_stem)
+    sim = []
+    t0 = time.perf_counter()
+    for i, (k, m) in enumerate(((21, 13), (48, 8), (eco.config.layers[0].k, 0))):
+        key = 10 + i
+        card = simulator.simulated_hb_relu(stem[0], k, m, prng.PRNGKey(key, "cuda"))
+        cpu = simulator.simulated_hb_relu(stem[0].cpu(), k, m, prng.PRNGKey(key, "cpu"))
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"simulated_hb_relu ({k}, {m}) on the card differs "
+                                 "from the CPU")
+        sim.append({"k": k, "m": m, "shape": list(stem[0].shape)})
+    sim_s = time.perf_counter() - t0
+    print(f"simulated_hb_relu at the stem's {tuple(stem[0].shape)}: card == CPU at "
+          f"{[(r['k'], r['m']) for r in sim]} ({sim_s:.3f} s, both devices)", flush=True)
+    # serve the found plan
+    lo = SEARCH_SERVE
+    serve_x = [xs[lo + i:lo + i + 1] for i in range(STREAMS)]
+    with torch.no_grad():
+        want = torch.cat([afn(params, x) for x in serve_x])
+    by_shape = resnet_shape_launches(found)
+    per_call = {k: sum(v.values()) for k, v in by_shape.items()}
+    run = online_calls("search", found, (cfg, params, None, serve_x, want),
+                       expect=PATH_KERNELS["search"], want_launches=per_call,
+                       keep_reveal=True)
+    if float(run["bytes"]) != res.objective_value or \
+            run["launches"]["ring_matmul"] != per_call["ring_matmul"]:
+        raise AssertionError(f"search: served {run['bytes']} B / launches "
+                             f"{run['launches']}, the search predicted "
+                             f"{res.objective_value} B and {per_call}")
+    reveal = run.pop("reveal").argmax(-1)
+    with torch.no_grad(), simulator.deterministic():
+        simulated = afn(params, torch.cat(serve_x),
+                        relu_fn=simulator.make_group_relu(found.hb,
+                                                          prng.PRNGKey(5, "cuda")))
+    agree_sim = float((reveal == simulated.argmax(-1)).float().mean())
+    agree_plain = float((reveal == want.argmax(-1)).float().mean())
+    print(f"search plan served: {STREAMS} requests, {run['rounds']} rounds, "
+          f"{run['bytes']} B per call (= the search's objective_value); top-1 "
+          f"agreement of the revealed logits with the simulated model "
+          f"{agree_sim:.2f}, with the plaintext model {agree_plain:.2f}", flush=True)
+    rows, records_s = _timed(lambda: search_kernel_phase(by_shape))
+    sums = {}
+    for kernel, launches in by_shape.items():
+        if not launches or kernel == "ring_matmul":
+            continue
+        shapes = {r["search_shape"]: r for r in rows
+                  if r["name"] == kernel and "search_shape" in r}
+        sums[kernel] = call_sums(shapes, launches)
+        print(f"{kernel} per search-plan call ({sums[kernel]['launches']} launches at "
+              f"{len(launches)} shapes): {sums[kernel]['ms']:.4f} ms from DRAM, "
+              f"{sums[kernel]['hot_ms']:.4f} ms from L2, "
+              f"{sums[kernel]['eager_call_ms']:.4f} ms eager; card bound "
+              f"{sums[kernel]['bound_ms']:.4f} ms", flush=True)
+    for row in rows:
+        row["search_per_call_sums"] = sums
+    out = {"images": SEARCH_IMAGES, "data_s": data_s, "finetune_s": finetune_s,
+           "finetune_steps": len(losses), "losses": losses,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "baseline_accuracy": base_acc,
+           "eco": eco.to_json(), "budget": res.to_json(),
+           "budget_candidates": len(visited), "candidates_per_s": cands_per_s,
+           "estimate_lan_s": lan, "estimate_wan_s": wan, "candidate": cand,
+           "simulator_card_equals_cpu": sim, "simulator_check_s": sim_s,
+           "kernel_records_s": records_s, "served": run,
+           "agreement_with_simulated": agree_sim,
+           "agreement_with_plaintext": agree_plain,
+           "launches_by_shape": {k: {str(s): n for s, n in v.items()}
+                                 for k, v in by_shape.items()},
+           "per_call_sums": sums}
+    return out, rows, dict(run["launches"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1617,6 +1944,13 @@ def main() -> None:
     merge = merge_phase(torch.empty(64 * 2 ** 20, dtype=torch.int32,
                                     device="cuda").zero_)
     breakdown = stem_breakdown_phase()
+    search, search_rows, search_launches = search_phase()
+    for k, v in search_launches.items():
+        launches.setdefault(k, {})["search"] = v
+    search["per_call_sums"]["ring_matmul"] = next(
+        r["per_call_sums"] for r in rows + extra
+        if r["name"] == "ring_matmul" and "per_call_sums" in r)
+    extra += search_rows
     for row in rows + extra:     # launches: the row's path; all paths beside
         row["launches"] = launches[row["name"]][row.pop("path")]
         row["launches_by_path"] = launches[row["name"]]
@@ -1631,7 +1965,7 @@ def main() -> None:
                    "main_path": runs, "lm_path": lm_runs, "lm_relu": lm_relu,
                    "ragged_merge": ragged,
                    "merge": merge,
-                   "stem_breakdown": breakdown}, f, indent=1)
+                   "stem_breakdown": breakdown, "search": search}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
 

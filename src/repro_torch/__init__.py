@@ -9,11 +9,15 @@ Same layout as the reference, so each module names its twin:
   kernels/  CUDA kernels (``csrc/``) behind ``ops`` wrappers, their plain
             PyTorch versions (``ref``) and the build (``build``)
   api/      Plan, Session, compile -> PrivateModel
-  nn/       the dense LM's projections and RoPE, and the reduced-ring
+  nn/       the dense LM's projections and RoPE (its public tables bit for
+            bit the reference's: ``rope_tables``), and the reduced-ring
             lowering of its nonlinearities (``nn/approx``)
   models/   ResNet (plaintext forward + registered MPC forward) and the
             dense LM (plaintext twin + registered MPC forward)
   configs/  ResNet configs and the LM architectures
+  search/   the paper's offline phase: MPC simulator, HummingBird-eco and
+            -b, the STE finetune (over ``data/`` ImagePipeline and
+            ``train/`` SGD)
 
 Entry points run on the GPU unless given ``device="cpu"``: ``device=None``
 means CUDA and raises without a card (``device.resolve``).

@@ -220,6 +220,11 @@ class PrivateModel:
         assert self.apply_fn is not None, "compiled without apply_fn"
         return self.apply_fn(params if params is not None else self.params, x_f)
 
+    def estimate(self, *args, **kwargs) -> float:
+        """``plan.estimate`` under this model's auto-batching."""
+        kwargs.setdefault("auto_batch", self.auto_batch)
+        return self.plan.estimate(*args, **kwargs)
+
     def schedule(self, streams: int = 1):
         """Predicted fused-round timeline of one ``__call__`` replay."""
         return self.plan.schedule(streams=streams, auto_batch=self.auto_batch)

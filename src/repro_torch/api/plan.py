@@ -9,7 +9,8 @@ cone-pruned adder is used.  Its JSON and ``digest()`` are byte-identical
 to the reference's for the same model, so the two packages agree on which
 network they run.  ``trace_plan`` runs the plaintext torch forward on the
 ``meta`` device (the reference uses ``jax.eval_shape``): shapes only, no
-data, no compute.
+data, no compute.  ``gantt`` and ``estimate`` read the copied
+``core/schedule.py``, so they give the reference's text and floats.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import hashlib
 import json
 import math
 import pathlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -26,6 +27,23 @@ from .. import errors
 from ..core import schedule as schedule_lib
 from ..core.costmodel import CommCost
 from ..core.hummingbird import HBConfig
+
+
+# ---------------------------------------------------------------------------
+# Network presets (the paper's §5.2 evaluation setup)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NetworkPreset:
+    name: str
+    bandwidth_bps: float          # one-direction link bandwidth, bits/s
+    rtt_s: float
+
+
+HIGHBW = NetworkPreset("highbw", 16e12 / 8, 10e-6)  # NVLink-class
+LAN = NetworkPreset("lan", 10e9 / 8, 50e-6)         # 10 Gbps, 50 us
+WAN = NetworkPreset("wan", 352e6 / 8, 20e-3)        # 352 Mbps, 20 ms (paper)
+NETWORKS = {p.name: p for p in (HIGHBW, LAN, WAN)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,10 +154,53 @@ class Plan:
             total = total + schedule_lib.simulate_open([o.n_elements] * streams)
         return total
 
+    def gantt(self, streams: int = 1, auto_batch: bool = True) -> str:
+        """Per-call ASCII Gantt of one replay (``Schedule.gantt`` for each
+        ReLU call, phases as rows and fused rounds as columns), then the
+        replay's total; the reference's text, character for character."""
+        if not self.calls and self.n_groups:
+            raise ValueError(
+                "gantt needs a traced plan: this plan was built without a "
+                "call list (Plan.from_hb) — use trace_plan / model-specific "
+                "trace() to get one")
+        blocks: List[str] = []
+        total = schedule_lib.Schedule.empty()
+        for idx, (c, spec) in enumerate(zip(self.calls, self.call_specs())):
+            layer = self.hb.layers[c.group]
+            sched = schedule_lib.simulate([spec] * streams, cone=self.cone,
+                                          auto_batch=auto_batch)
+            total = total + sched
+            head = (f"call {idx}: group {c.group}  k={layer.k} m={layer.m} "
+                    f"width={layer.width}  {c.n_elements} el"
+                    + (f" x {streams} streams" if streams > 1 else ""))
+            if not sched.slots:
+                blocks.append(f"{head}  — culled (0 rounds, 0 bytes)")
+                continue
+            blocks.append(head + "\n" + sched.gantt())
+        blocks.append(f"replay total: {total.n_rounds} fused rounds, "
+                      f"{total.bytes_tx} B/party one-direction")
+        return "\n\n".join(blocks)
+
     def cost(self, streams: int = 1, auto_batch: bool = True) -> CommCost:
         """Closed-form ReLU communication of one replay (schedule totals)."""
         sched = self.schedule(streams=streams, auto_batch=auto_batch)
         return CommCost(sched.bytes_tx, sched.n_rounds, sched.phase_bytes())
+
+    def estimate(self, bandwidth_bps: Optional[float] = None,
+                 rtt_s: Optional[float] = None, *,
+                 network: Union[NetworkPreset, str, None] = None,
+                 streams: int = 1, compute_s: float = 0.0,
+                 auto_batch: bool = True) -> float:
+        """ReLU latency estimate (seconds) of one replay: the schedule's
+        fused rounds priced one RTT each, serialization sharing the link,
+        under explicit (bandwidth_bps, rtt_s) or a ``NETWORKS`` preset."""
+        if network is not None:
+            preset = NETWORKS[network] if isinstance(network, str) else network
+            bandwidth_bps, rtt_s = preset.bandwidth_bps, preset.rtt_s
+        if bandwidth_bps is None or rtt_s is None:
+            raise ValueError("estimate needs (bandwidth_bps, rtt_s) or network=")
+        return self.schedule(streams=streams, auto_batch=auto_batch).latency(
+            bandwidth_bps, rtt_s, compute_s)
 
     # -- (de)serialization ----------------------------------------------------
     def to_json(self) -> Dict:
@@ -239,6 +300,11 @@ class Plan:
         except (KeyError, ValueError, TypeError, AssertionError) as e:
             raise errors.PlanInvalid(f"malformed plan file {path}: {e}") from e
         return plan.validate()
+
+    @staticmethod
+    def from_hb(hb: HBConfig, cone: bool = False, name: str = "") -> "Plan":
+        """Trace-free plan (execution only; no cost or triple accounting)."""
+        return Plan(calls=(), hb=hb, cone=cone, name=name)
 
 
 def _to_meta(tree):

@@ -10,7 +10,14 @@ reference therefore needs the same generator.  This module follows
 - ``split``        = ``_threefry_split_foldlike``: hash of a flat counter;
 - ``fold_in``      = ``_threefry_fold_in``: hash of the counter (0, data);
 - ``bits``         = ``_threefry_random_bits_partitionable``, 32-bit width:
-                     the two hash outputs XORed.
+                     the two hash outputs XORed;
+- ``uniform``      = ``random.uniform`` (float32): 23 mantissa bits of
+                     ``bits`` under the exponent of 1.0, minus 1;
+- ``normal``       = ``random.normal`` (float32): sqrt(2) erfinv(u) of a
+                     uniform u in (-1, 1) (torch's erfinv is not XLA's: equal
+                     to within a few float32 ulps, not bit for bit);
+- ``permutation``  = ``random.permutation(key, n)``: ``_shuffle``'s rounds
+                     of split, 32-bit sort keys and a stable sort.
 
 A key is an int64 tensor of shape (..., 2) holding two 32-bit words.  All
 arithmetic runs in int64 masked to 32 bits (torch has no ``uint32`` shifts
@@ -19,6 +26,8 @@ or adds), on the key's device.
 from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
+
+import math
 
 import torch
 
@@ -105,3 +114,42 @@ def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
 def bits_words(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``bits`` as int32 bit patterns: the packed-word dtype of the port."""
     return bits(key, shape).to(torch.int32)
+
+
+def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for
+    bit: ``(bits >> 9) | 0x3F800000`` read as a float in [1, 2), minus 1,
+    scaled and shifted, and clamped below at ``minval``.  XLA fuses the
+    scale and the shift into one fma; in float64 the float32 product is
+    exact, so one rounding to float32 after the add gives the fma's
+    result (a double rounding could differ at a float32 tie, about one
+    draw in 2^29)."""
+    b = bits(key, shape)
+    floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    scaled = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.float())
+
+
+def normal(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): sqrt(2) erfinv(u), u
+    uniform in [nextafter(-1, 0), 1).  The uniform draw is bit-exact; the
+    erfinv is torch's, within a few ulps of XLA's."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.erfinv(u) * torch.tensor(math.sqrt(2), dtype=torch.float32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: a shuffled ``arange(n)`` (int64),
+    one round of ``split`` + 32-bit sort keys + a stable sort for n <= 1625,
+    more above (jax's ``_shuffle`` round count)."""
+    n = int(n)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(MASK32))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.argsort(bits(sub, (n,)), stable=True)]
+    return x

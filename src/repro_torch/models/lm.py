@@ -30,7 +30,7 @@ from ..api import Plan, register_mpc_forward, trace_plan
 from ..configs.base import ArchConfig
 from ..core import mpc_tensor
 from ..device import Device, resolve as resolve_device
-from ..nn import approx, attention, common
+from ..nn import approx, attention, common, rope_tables
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -181,14 +181,11 @@ def _mpc_proj(x, wp, n_h: int, dh: int, comm):
 
 def _rope_mpc(t, s: int, theta: float):
     """RoPE on a secret (B, S, H, Dh) tensor: cos/sin are public per
-    position (float32 tables, as the reference), so the rotation is four
-    mul_public and two ring combines."""
+    position, so the rotation is four mul_public and two ring combines.
+    The float32 tables are the reference's bit for bit, built on the CPU
+    and moved to the tensor's device (``nn/rope_tables.py``)."""
     half = t.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=t.device)
-                      / half)
-    angles = torch.arange(s, dtype=torch.float32, device=t.device)[:, None] * freqs
-    cos = torch.cos(angles)[:, None, :]                           # (S, 1, half)
-    sin = torch.sin(angles)[:, None, :]
+    cos, sin = rope_tables.rope_tables(s, t.shape[-1], theta, t.device)  # (S, 1, half)
     x1, x2 = t[..., :half], t[..., half:]
     out1 = x1.mul_public(cos) - x2.mul_public(sin)
     out2 = x2.mul_public(cos) + x1.mul_public(sin)

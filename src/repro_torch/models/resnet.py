@@ -170,9 +170,19 @@ def n_relu_groups(cfg: ResNetConfig) -> int:
     return 1 + len(cfg.stage_blocks)
 
 
+def relu_group_elements(params, cfg: ResNetConfig, in_hw: int = 0) -> List[int]:
+    """Activation counts per ReLU group for one sample (budget weighting),
+    from a shape-only trace."""
+    return list(trace(params, cfg, batch=1, hw=in_hw).group_elements)
+
+
 # ---------------------------------------------------------------------------
 # MPC path
 # ---------------------------------------------------------------------------
+
+def hb_or_exact(hb: Optional[HBConfig], cfg: ResNetConfig) -> HBConfig:
+    return hb if hb is not None else HBConfig.exact((0,) * n_relu_groups(cfg))
+
 
 def trace(params, cfg: ResNetConfig, batch: int, hw: int = 0,
           hb: Optional[HBConfig] = None, cone: bool = False) -> Plan:

@@ -570,3 +570,96 @@ def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+@pytest.mark.cuda
+def test_cuda_search_forwards_are_deterministic():
+    """HummingBird-eco compares logits bit for bit: under the searches'
+    ``simulator.deterministic()`` two forwards of full-width ResNet-18 on
+    the same batch give ``torch.equal`` logits, and the caller's cuDNN and
+    TF32 settings come back after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import RESNET18
+    from repro_torch.data import ImagePipeline
+    from repro_torch.models import resnet
+    from repro_torch.search import simulator
+
+    params = resnet.init(RESNET18, seed=0, device="cuda")
+    xs, _ = ImagePipeline(n_classes=10, hw=32).take(64, device="cuda")
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    with simulator.deterministic(), torch.no_grad():
+        first = resnet.apply(params, xs, RESNET18)
+        for _ in range(3):
+            assert torch.equal(resnet.apply(params, xs, RESNET18), first)
+    assert (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == saved
+
+
+@pytest.mark.cuda
+def test_cuda_simulated_hb_relu_equals_cpu():
+    """The simulator's share split and reduced-ring sign on the card equal
+    the CPU's bit for bit, at the stem's full-width shape, w <= 32 and
+    w > 32, the exact (64, 0) and the culled width 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import prng
+    from repro_torch.search import simulator
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((8, 64, 32, 32), generator=gen) * 3
+    for k, m in ((21, 13), (18, 0), (32, 0), (48, 8), (64, 20), (64, 0), (13, 13)):
+        cpu = simulator.simulated_hb_relu(x, k, m, prng.PRNGKey(k, "cpu"))
+        card = simulator.simulated_hb_relu(x.cuda(), k, m, prng.PRNGKey(k, "cuda"))
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu), (k, m)
+
+
+@pytest.mark.cuda
+def test_cuda_rope_tables_equal_the_cpus():
+    """The RoPE tables the private LM uses on the card (built on the host,
+    then moved) equal the CPU's bit for bit; CUDA's own cosf/sinf would
+    not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.nn import rope_tables
+
+    for s, dh, theta in ((8, 64, 1e6), (512, 64, 1e6), (128, 16, 1e4)):
+        cpu = rope_tables.rope_tables(s, dh, theta, "cpu")
+        card = rope_tables.rope_tables(s, dh, theta, "cuda")
+        for a, b in zip(card, cpu):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    angles = torch.arange(512, dtype=torch.float32)[:, None] * torch.rand(32)
+    assert torch.equal(rope_tables.sincos_f32(angles.cuda(), True).cpu(),
+                       rope_tables.sincos_f32(angles, True))
+
+
+@pytest.mark.cuda
+def test_cuda_finetune_is_reproducible():
+    """Two finetunes of full-width ResNet-18 from the same weights, images
+    and key give the same params bit for bit on the card (deterministic
+    cuDNN and no TF32, as the searches), so a search that follows finds
+    the same config on every run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import prng
+    from repro_torch.data import ImagePipeline
+    from repro_torch.models import resnet
+    from repro_torch.search import finetune
+
+    xs, ys = ImagePipeline(n_classes=10, hw=32).take(128, device="cuda")
+    hb = resnet.trace(resnet.init(RESNET18, seed=0, device="cuda"), RESNET18, 1).hb
+
+    def run():
+        params = resnet.init(RESNET18, seed=0, device="cuda")
+        return finetune.finetune(lambda p, x, relu_fn=None: resnet.apply(
+            p, x, RESNET18, relu_fn=relu_fn), params, xs, ys, hb,
+            prng.PRNGKey(1, "cuda"), epochs=1, batch=64, lr=3e-3)
+
+    (p1, l1), (p2, l2) = run(), run()
+    assert l1 == l2 and len(l1) == 2
+    from repro_torch.train.optimizer import tree_leaves
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))

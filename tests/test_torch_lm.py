@@ -62,16 +62,16 @@ class _Setup:
     """One configuration in both packages: weights (the reference's, carried
     across), hidden states per stream, traced plans."""
 
-    def __init__(self, n_layers: int, streams: int):
+    def __init__(self, n_layers: int, streams: int, seq: int = SEQ):
         self.jcfg, self.tcfg = _cfgs(n_layers)
         self.params = jlm.init(jax.random.PRNGKey(0), self.jcfg)
         self.tparams = tlm.params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                   self.params), "cpu")
         self.hs = [np.asarray(jax.random.normal(jax.random.PRNGKey(1 + 10 * i),
-                                                (1, SEQ, self.jcfg.d_model))) * 0.5
+                                                (1, seq, self.jcfg.d_model))) * 0.5
                    for i in range(streams)]
-        self.jplan = jlm.trace(self.params, self.jcfg, 1, SEQ)
-        self.tplan = tlm.trace(self.tparams, self.tcfg, 1, SEQ)
+        self.jplan = jlm.trace(self.params, self.jcfg, 1, seq)
+        self.tplan = tlm.trace(self.tparams, self.tcfg, 1, seq)
         self._runs = {}
 
     def ref_run(self, kms):
@@ -195,25 +195,52 @@ def test_plan_validate_rejects_bad_opens(one_block):
             dataclasses.replace(plan, opens=plan.opens + (bad,)).validate()
 
 
-def test_rope_tables_encode_as_the_reference():
-    """The encoded RoPE tables at this file's (S, dh) and at the card's
-    (8, 64): torch's and XLA's float32 pow/cos/sin may differ by an ulp,
-    which can flip an LSB once encoded; here they agree."""
+@pytest.mark.parametrize("s", [64, 128, 512])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_rope_tables_encode_as_the_reference(s, dh):
+    """The port's own RoPE tables (``nn/rope_tables.py``, which
+    ``_rope_mpc`` reads) against the reference's float32 expressions
+    (``models/lm.py`` ``_rope_mpc``) at the smoke head (16) and the full
+    width's (64), past the lengths where float32 torch math part ways:
+    the same float32 bits, so the same encoded tables."""
     import jax.numpy as jnp
 
     from repro.core import mpc_tensor as jmt
     from repro_torch.core import mpc_tensor as tmt
+    from repro_torch.nn import rope_tables
 
-    for s, dh in ((SEQ, 16), (8, 64)):
-        half = dh // 2
-        freqs = 10000.0 ** (-jnp.arange(0, half, dtype=jnp.float32) / half)
+    half = dh // 2
+    for theta in (10000.0, 1e6):
+        freqs = theta ** (-jnp.arange(0, half, dtype=jnp.float32) / half)
         ang = jnp.arange(s, dtype=jnp.float32)[:, None] * freqs
-        tf = 10000.0 ** (-torch.arange(0, half, dtype=torch.float32) / half)
-        ta = torch.arange(s, dtype=torch.float32)[:, None] * tf
-        for jf, tf_ in ((jnp.cos, torch.cos), (jnp.sin, torch.sin)):
+        got = rope_tables.rope_tables(s, dh, theta, "cpu")
+        for jf, t in zip((jnp.cos, jnp.sin), got):
+            want = np.asarray(jf(ang))[:, None, :]
+            assert t.dtype == torch.float32 and tuple(t.shape) == want.shape
+            np.testing.assert_array_equal(t.numpy().view(np.int32), want.view(np.int32))
             np.testing.assert_array_equal(
-                tmt.encode_weights(tf_(ta), device="cpu").numpy(),
-                np.asarray(jmt.encode_weights(jf(ang))))
+                tmt.encode_weights(t, device="cpu").numpy(),
+                np.asarray(jmt.encode_weights(jnp.asarray(want))))
+
+
+def test_sincos_f32_equals_xla_over_the_float_range():
+    """``sincos_f32`` against XLA's float32 cos/sin on the CPU, bit for bit,
+    on both reductions (below and above 120), negative arguments, the
+    polynomial-only range below pi/4 and the tiny range below 2^-12."""
+    import jax.numpy as jnp
+
+    from repro_torch.nn.rope_tables import sincos_f32
+
+    rng = np.random.default_rng(7)
+    x = np.concatenate([rng.uniform(-1e4, 1e4, 40000), rng.uniform(-120, 120, 40000),
+                        rng.uniform(-1, 1, 20000), rng.uniform(-1e-3, 1e-3, 5000),
+                        rng.uniform(-3e7, 3e7, 20000),
+                        [0.0, -0.0, 119.99999, 120.0, 2 ** -12, np.pi / 4]]
+                       ).astype(np.float32)
+    for jf, cos in ((jnp.cos, True), (jnp.sin, False)):
+        np.testing.assert_array_equal(
+            sincos_f32(torch.from_numpy(x), cos).numpy().view(np.int32),
+            np.asarray(jf(jnp.asarray(x))).view(np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -56,3 +56,37 @@ def test_bits(shape):
     np.testing.assert_array_equal(_np(got), want.astype(np.uint64))
     np.testing.assert_array_equal(prng.bits_words(prng.PRNGKey(11, "cpu"), shape).numpy(),
                                   want.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5, 7), (4096,)])
+@pytest.mark.parametrize("lo_hi", [(0.0, 1.0), (-2.5, 4.0), (-1.3, 0.7)])
+def test_uniform_floats(shape, lo_hi):
+    """``jax.random.uniform`` float32 bit for bit, with the scale and shift
+    XLA fuses into one fma."""
+    lo, hi = lo_hi
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), shape, minval=lo,
+                                         maxval=hi))
+    got = prng.uniform(prng.PRNGKey(3, "cpu"), shape, lo, hi)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 10, 384, 1625, 1626, 2000, 4096])
+def test_permutation(n):
+    """``jax.random.permutation(key, n)`` exactly: one sort round up to 1625,
+    two above."""
+    for seed in (0, 5):
+        want = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed), n))
+        got = prng.permutation(prng.PRNGKey(seed, "cpu"), n)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_normal_on_tolerance():
+    """``jax.random.normal``: the same uniform draw, then torch's erfinv
+    against XLA's polynomial: within 2e-5 absolute and 1e-5 relative over
+    a million draws (|x| up to about 5)."""
+    shape = (1000, 3, 16, 16)
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(2), shape))
+    got = prng.normal(prng.PRNGKey(2, "cpu"), shape).numpy()
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)

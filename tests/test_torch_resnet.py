@@ -15,6 +15,7 @@ from repro.core import comm as jcomm, mpc_tensor as jmpc
 from repro.models import resnet as jres
 from repro_torch import api as tapi
 from repro_torch.configs import RESNET_SMOKE as TSMOKE
+from repro_torch.data import ImagePipeline
 from repro_torch.core import comm as tcomm, mpc_tensor as tmpc, prng, ring as tring
 from repro_torch.models import resnet as tres
 
@@ -290,7 +291,9 @@ def test_session_defaults_to_cuda():
     lambda d: tres.params_from_jax({"w": np.ones(3, np.float32)}, d)["w"],
     lambda d: tmpc.encode_weights(np.ones(3, np.float32), device=d),
     lambda d: tring.from_uint64_np(np.ones(3, np.uint64), d),
-], ids=["PRNGKey", "init", "params_from_jax", "encode_weights", "from_uint64_np"])
+    lambda d: ImagePipeline(hw=4).take(2, device=d)[0],
+], ids=["PRNGKey", "init", "params_from_jax", "encode_weights", "from_uint64_np",
+        "ImagePipeline"])
 def test_entry_points_default_to_cuda(make):
     """device=None means the GPU, and raises without one; "cpu" is honoured."""
     assert make("cpu").device.type == "cpu"
@@ -316,6 +319,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert ROOT / "src" / "repro_torch" / "runtime" / "loop.py" in files
     assert ROOT / "src" / "repro_torch" / "models" / "lm.py" in files
     assert ROOT / "src" / "repro_torch" / "nn" / "approx" / "pwl.py" in files
+    for sub in ("search/engine.py", "search/simulator.py", "search/finetune.py",
+                "data/pipeline.py", "train/optimizer.py", "nn/rope_tables.py"):
+        assert ROOT / "src" / "repro_torch" / sub in files, sub
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad

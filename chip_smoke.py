@@ -119,7 +119,39 @@ Phases (any failure raises, and the script exits non-zero):
    ``objective_value``, exactly the plan's launches per kernel,
    ``resnet_shape_launches``), and each ReLU kernel against its plain
    version at the plan's own shapes (``search_kernel_phase``), with its
-   sum per call.
+   sum per call;
+10. serve: the ``InferenceEngine`` over full-width ResNet-18's reduced plan
+   (``BatchPolicy(max_batch=4)``, three tenants, the default inline
+   triples, the captured replay): ``SERVE_MIX`` (8 single images with
+   explicit ids, one of batch 2, one with ``deadline_s=0``; carol's budget
+   holds one request) drained, then ``SERVE_WARM``; the batches must be
+   ``SERVE_BATCHES`` (three stream signatures), each batch's rounds and
+   bytes equal to ``simulate_merged``'s prediction and its rounds to the
+   max over its requests; the over-budget request must fail with
+   ``TripleBudgetExceeded`` and the late one with ``DeadlineExceeded``;
+   every request's shares must equal its serial oracle on the card; each
+   batch must launch its requests' kernels as their plans say
+   (``resnet_shape_launches`` per request, unmerged), twice on a
+   signature's first batch (generator loop, then capture), none from the
+   host on a warm one (its graph holds them); each ReLU kernel equal to
+   its plain version at the serving shapes; per batch its requests,
+   rounds, bytes, synchronized wall, first call plus capture against warm,
+   and the replay cache's entries, captures and reserved memory printed;
+11. serve-lm: the private LM through an engine built with ``apply_fn=None``
+   on the exact plan: 2 requests as one batch on the generator loop,
+   rounds and bytes equal to the engine's merged schedule (opens merged
+   per site) and ``LM_SCHEDULE``'s 46 rounds, the plan's kernels, the
+   logits within the exact plan's tolerance;
+12. frontend: ``Frontend.serve_background`` on a ResNet engine
+   (``max_batch=1``) with a fresh replay cache, 6 concurrent ``POST
+   /infer`` from threads, batch 1 and 2 in turn, captures made while they
+   run; every reply equal to the same request id on a direct engine, no
+   pump error, every wait bounded;
+13. seed-oracle: ``gmw_ref.relu`` (the frozen seed path, which launches
+   only ``beaver_and``) against ``gmw.relu`` at the stem's shape at (64,
+   0), (21, 13) and (21, 13) with the cone, bit for bit, both paths'
+   exchanges and walls printed; ``BENCH_relu.json``'s ``multigroup``
+   through both (31 swaps against 10 rounds, 696 576 B each, same shares).
 
 Output: a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -1273,10 +1305,12 @@ def lm_setup():
     return cfg, params, {"lm-exact": plan, "lm-reduced": reduced}, hs, want
 
 
-def lm_shape_launches(plan, cfg) -> dict:
+def lm_shape_launches(plan, cfg, merged: bool = True) -> dict:
     """Each kernel's launches per LM call by shape, read from the plan: per
     ReLU call (the streams merged into one of E = ``LM_STREAMS`` x its
-    elements, W = ceil(E / 32) words), one masked pack_ring at (k, m, E),
+    elements, W = ceil(E / 32) words; with ``merged`` False, as the serving
+    engine runs them, each stream on its own at E = its elements), one
+    masked pack_ring at (k, m, E),
     one unpack of the sign plane at E and the dense adder's beaver_and,
     ks_mask and ks_combine at (w, W) and ks_step at (w, W, 2^l) for each
     level l > 0; ring_matmul per ``LM_RING_MATMUL_SHAPES``; per matmul open
@@ -1291,18 +1325,19 @@ def lm_shape_launches(plan, cfg) -> dict:
     def add(kernel, shape, n=1):
         out[kernel][shape] = out[kernel].get(shape, 0) + n
 
+    per = 1 if merged else LM_STREAMS
     for c in plan.calls:
         layer = plan.hb.layers[c.group]
-        e = LM_STREAMS * c.n_elements
+        e = LM_STREAMS * c.n_elements // per
         n_words = (e + 31) // 32
-        add("pack_ring", (layer.k, layer.m, e))
-        add("unpack", e)
+        add("pack_ring", (layer.k, layer.m, e), per)
+        add("unpack", e, per)
         if layer.width < 2:
             continue
         for k in ("beaver_and", "ks_mask", "ks_combine"):
-            add(k, (layer.width, n_words))
+            add(k, (layer.width, n_words), per)
         for lvl in range(1, n_levels(layer.width)):
-            add("ks_step", (layer.width, n_words, 1 << lvl))
+            add("ks_step", (layer.width, n_words, 1 << lvl), per)
     for m, k, n, c in LM_RING_MATMUL_SHAPES:
         add("ring_matmul", (m, k, n), c)
     h, dh = cfg.n_heads, cfg.resolved_head_dim
@@ -1663,19 +1698,22 @@ SEARCH_EPOCHS, SEARCH_BATCH, SEARCH_LR = 4, 64, 3e-3
 SEARCH_BUDGET, SEARCH_BITS = 8 / 64, (6, 8)
 
 
-def resnet_shape_launches(plan) -> dict:
+def resnet_shape_launches(plan, streams: int = STREAMS, batch: int = 1,
+                          out: dict = None) -> dict:
     """Each kernel's launches per ResNet-18 call of a dense plan, by shape,
-    read from the plan: per ReLU call of width w > 0 (the ``STREAMS``
-    requests merged into E = 4 x its elements, W = E / 32 words), one
-    masked pack_ring at (k, m, E) and one unpack of the sign plane at E;
-    for w > 1 the dense adder's beaver_and, ks_mask and ks_combine at (w,
-    W) and ks_step at (w, W, 2^l) for each level l > 0; ring_matmul per
-    ``RING_MATMUL_SHAPES``."""
+    read from the plan: per ReLU call of width w > 0 (the ``streams``
+    requests merged into E = ``streams`` x its elements, W = E / 32 words),
+    one masked pack_ring at (k, m, E) and one unpack of the sign plane at
+    E; for w > 1 the dense adder's beaver_and, ks_mask and ks_combine at
+    (w, W) and ks_step at (w, W, 2^l) for each level l > 0; ring_matmul per
+    ``RING_MATMUL_SHAPES`` (per stream, M times the requests' ``batch``).
+    A serving batch runs its streams unmerged: sum ``streams=1`` over its
+    requests into one ``out``."""
     from repro_torch.core.schedule import n_levels
 
     if plan.cone:
         raise ValueError("resnet_shape_launches counts the dense adder only")
-    out = {k: {} for k in SHAPE_KERNELS}
+    out = out if out is not None else {k: {} for k in SHAPE_KERNELS}
 
     def add(kernel, shape, n=1):
         out[kernel][shape] = out[kernel].get(shape, 0) + n
@@ -1684,7 +1722,7 @@ def resnet_shape_launches(plan) -> dict:
         layer = plan.hb.layers[c.group]
         if layer.width == 0:
             continue
-        e = STREAMS * c.n_elements
+        e = streams * c.n_elements
         n_words = (e + 31) // 32
         add("pack_ring", (layer.k, layer.m, e))
         add("unpack", e)
@@ -1695,19 +1733,21 @@ def resnet_shape_launches(plan) -> dict:
         for lvl in range(1, n_levels(layer.width)):
             add("ks_step", (layer.width, n_words, 1 << lvl))
     for m, k, n, c in RING_MATMUL_SHAPES:
-        add("ring_matmul", (m, k, n), c)
+        add("ring_matmul", (m * batch, k, n), c * streams // STREAMS)
     return out
 
 
-def search_kernel_phase(by_shape: dict) -> list:
-    """Each ReLU kernel against its plain version at the found plan's own
-    shapes (``resnet_shape_launches``): the dense adder at every (w, W) and
-    shift, masked pack_ring at every (k, m, E), unpack at every sign plane;
-    each record keyed ``search_shape``."""
+def search_kernel_phase(by_shape: dict, path: str = "search") -> list:
+    """Each ReLU kernel against its plain version at a plan's own shapes
+    (``resnet_shape_launches``): the dense adder at every (w, W) and shift,
+    masked pack_ring at every (k, m, E), unpack at every sign plane; each
+    record keyed ``<path>_shape`` (the search's found plan, the serving
+    batches)."""
     from repro_torch.core.schedule import n_levels
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(4)
+    key = f"{path}_shape"
     P = 2
     rows = []
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
@@ -1718,7 +1758,7 @@ def search_kernel_phase(by_shape: dict) -> list:
     for w, n_w in sorted(by_shape["ks_mask"], reverse=True):
         adder_records(record, gen, w, n_w,
                       tuple(1 << lvl for lvl in range(1, n_levels(w))), rows,
-                      "search", shape_key="search_shape")
+                      path, shape_key=key)
     for k, m, e in sorted(by_shape["pack_ring"], reverse=True):
         x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
                           dtype=torch.int64).cuda()
@@ -1727,7 +1767,7 @@ def search_kernel_phase(by_shape: dict) -> list:
                "src/repro/kernels/bitpack.py:44",
                lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
                8 * P * e + 8 * r.numel(), shape=f"P={P} E={e} k={k} m={m} masked",
-               path="search")["search_shape"] = (k, m, e)
+               path=path)[key] = (k, m, e)
     for n in sorted(by_shape["unpack"], reverse=True):
         packed = words(gen, P, 1, (n + 31) // 32)
         record("unpack", "src/repro_torch/csrc/bitpack.cu",
@@ -1735,7 +1775,7 @@ def search_kernel_phase(by_shape: dict) -> list:
                lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
                4 * packed.numel() + 4 * P * n,
                shape=f"R={P} w=1 W={packed.shape[-1]} n={n}",
-               path="search")["search_shape"] = n
+               path=path)[key] = n
     return rows
 
 
@@ -1917,6 +1957,504 @@ def search_phase():
     return out, rows, dict(run["launches"])
 
 
+# The serving phases.  ``serve``: an InferenceEngine over full-width
+# ResNet-18's reduced plan, BatchPolicy(max_batch=4), three tenants (carol's
+# element budget holds one request, so her second overruns it), requests
+# with explicit ids in submission order (id, tenant, batch, deadline_s);
+# the policy forms [0-3], [4-7] (5 fails its budget) and [8, 9] (9 is shed):
+# three stream signatures (4 singles, 3 singles, 1 double), then the warm
+# groups replay each signature once more
+SERVE_MAX_BATCH = 4
+SERVE_MIX = ((0, "alice", 1, None), (1, "bob", 1, None), (2, "carol", 1, None),
+             (3, "alice", 1, None), (4, "bob", 1, None), (5, "carol", 1, None),
+             (6, "alice", 1, None), (7, "bob", 1, None), (8, "alice", 2, None),
+             (9, "bob", 1, 0.0))
+SERVE_WARM = (((10, "alice", 1), (11, "bob", 1), (12, "alice", 1), (13, "bob", 1)),
+              ((14, "alice", 1), (15, "bob", 1), (16, "alice", 1)),
+              ((17, "bob", 2),))
+SERVE_BATCHES = ((0, 1, 2, 3), (4, 6, 7), (8,), (10, 11, 12, 13), (14, 15, 16), (17,))
+# the frontend phase: 6 concurrent clients, alternating batch 1 and 2, one
+# request per batch (two stream signatures, captured while the clients run)
+FRONTEND_IDS = tuple(range(100, 106))
+FRONTEND_WAIT_S = 600.0
+
+
+def _replay_entries(before: int) -> list:
+    from repro_torch.api.compile import replay_cache_stats
+
+    return replay_cache_stats()[before:]
+
+
+def _batch_hooks(engine, records: list):
+    """Zero the launch counters just before each batch attempt's execution
+    and read them just after its outputs (``on_batch_attempt`` /
+    ``on_batch_outputs``, the engine's transport hooks)."""
+    from repro_torch.kernels import ops
+
+    def attempt(admitted):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        return [r.x for r in admitted]
+
+    def outputs(admitted, outs):
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        counts["pack_ring_masked"] = ops.pack_ring.masked
+        records.append({"ids": tuple(r.id for r in admitted), "counts": counts,
+                        "xs": [r.x for r in admitted]})
+        return outs
+
+    engine.on_batch_attempt, engine.on_batch_outputs = attempt, outputs
+
+
+def serve_phase():
+    """The serving engine on full-width ResNet-18 (``RESNET18``, seeded
+    weights at the reference's init scales) under the reduced plan, on the
+    captured replay, with the default inline triples (``SERVE_MIX``, then
+    ``SERVE_WARM``).  Requires: the batches ``SERVE_BATCHES``; each
+    batch's rounds and bytes equal to its prediction (``simulate_merged``)
+    and its rounds to the max over its requests; carol's second request
+    failed with ``TripleBudgetExceeded`` and request 9 with
+    ``DeadlineExceeded``, neither in any batch; every request's output
+    shares equal to its serial oracle on the card (one stream,
+    ``request_key(id)``, a fresh ``InlineTTP``; the captured replay for a
+    single image, whose first call runs the generator loop and is checked
+    against it at capture, the generator loop for the double); each batch
+    launching its plan's kernels as often as its requests' plans say
+    (``resnet_shape_launches`` per request: the streams are not merged),
+    twice on a signature's first batch (the generator loop, then the
+    capture) and never from the host on a warm one, whose graph holds
+    them; each ReLU kernel equal to its plain version at the serving
+    shapes.  Prints per batch its requests, rounds, bytes and synchronized
+    wall, first call plus capture against warm, and the replay cache's
+    entries, captures and reserved memory."""
+    from repro_torch import api, errors, serve
+    from repro_torch.core import beaver, comm as comm_lib, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.models import resnet
+
+    cfg, params, plans, _, _ = resnet_setup()
+    plan = plans["reduced"]
+
+    def afn(p, x, relu_fn=None):
+        return resnet.apply(p, x, cfg, relu_fn=relu_fn)
+
+    need = sum(n for n, w in plan.triple_specs() if n and w)
+    gen = torch.Generator().manual_seed(21)
+    batch_of = {rid: b for rid, _, b, _ in SERVE_MIX}
+    batch_of.update({rid: b for group in SERVE_WARM for rid, _, b in group})
+    inputs = {rid: (torch.rand((b, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2 - 1)
+              .cuda() for rid, b in sorted(batch_of.items())}
+    engine = serve.InferenceEngine(afn, params, cfg, plan,
+                                   api.Session(key=0, device="cuda"),
+                                   policy=serve.BatchPolicy(max_batch=SERVE_MAX_BATCH),
+                                   tenant_budgets={"carol": need})
+    records = []
+    _batch_hooks(engine, records)
+    from repro_torch.api.compile import replay_cache_stats
+    cache0, mem0 = len(replay_cache_stats()), torch.cuda.memory_reserved()
+    os.environ["HB_ROUND_LOOP"] = "scan"
+    t0 = time.perf_counter()
+    futs = {rid: engine.submit(t, inputs[rid], request_id=rid, deadline_s=d)
+            for rid, t, _, d in SERVE_MIX}
+    engine.flush()
+    for group in SERVE_WARM:
+        futs.update({rid: engine.submit(t, inputs[rid], request_id=rid)
+                     for rid, t, _ in group})
+        engine.flush()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    entries, mem1 = _replay_entries(cache0), torch.cuda.memory_reserved()
+    reports = list(engine.reports)
+    if tuple(r.request_ids for r in reports) != SERVE_BATCHES or \
+            tuple(r["ids"] for r in records) != SERVE_BATCHES:
+        raise AssertionError(f"serve: batches {[r.request_ids for r in reports]}, "
+                             f"expected {SERVE_BATCHES}")
+    for rid, exc in ((5, errors.TripleBudgetExceeded), (9, errors.DeadlineExceeded)):
+        try:
+            futs[rid].result()
+        except exc:
+            pass
+        else:
+            raise AssertionError(f"serve: request {rid} did not fail with {exc.__name__}")
+    usage = engine.tenant_usage("carol")
+    if usage["consumed_elements"] != need or engine.stats()["shed"] != 1:
+        raise AssertionError(f"serve: carol consumed {usage}, shed "
+                             f"{engine.stats()['shed']}; expected {need}, 1")
+    seen, rows_out, by_shape, host = set(), [], {k: {} for k in SHAPE_KERNELS}, {}
+    for rep, rec in zip(reports, records):
+        sig = rep.shapes
+        plan_rounds = max(engine.plan_for_shape(s).schedule().n_rounds for s in sig)
+        if (rep.measured_rounds, rep.measured_bytes) != \
+                (rep.predicted_rounds, rep.predicted_bytes) or \
+                rep.measured_rounds != plan_rounds:
+            raise AssertionError(f"serve batch {rep.request_ids}: measured "
+                                 f"{rep.measured_rounds} rounds / {rep.measured_bytes}"
+                                 f" B, predicted {rep.predicted_rounds} / "
+                                 f"{rep.predicted_bytes}, max over requests "
+                                 f"{plan_rounds}")
+        shapes = {k: {} for k in SHAPE_KERNELS}
+        for s in sig:
+            resnet_shape_launches(engine.plan_for_shape(s), streams=1, batch=s[0],
+                                  out=shapes)
+            resnet_shape_launches(engine.plan_for_shape(s), streams=1, batch=s[0],
+                                  out=by_shape)
+        per = {k: sum(v.values()) for k, v in shapes.items()}
+        per["pack_ring_masked"] = per["pack_ring"]
+        counts = rec["counts"]
+        first = sig not in seen
+        seen.add(sig)
+        stats = engine.model.replay_stats(rec["xs"])
+        if stats is None or any(stats["launches"][k] != v for k, v in per.items()):
+            raise AssertionError(f"serve batch {rep.request_ids}: its graph holds "
+                                 f"{stats and stats['launches']}, its plans say {per}")
+        want = {k: (2 * v if first else 0) for k, v in per.items()}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"serve batch {rep.request_ids}: launched {counts}, "
+                                 f"expected {want} ({'first call and capture' if first else 'warm replay'})")
+        if first and {k for k, v in counts.items()
+                      if v and k != "pack_ring_masked"} != PATH_KERNELS["reduced"]:
+            raise AssertionError(f"serve batch {rep.request_ids}: launched "
+                                 f"{counts}, its path runs {PATH_KERNELS['reduced']}")
+        for k, v in counts.items():
+            host[k] = host.get(k, 0) + v
+        rows_out.append({"ids": list(rep.request_ids), "tenants": list(rep.tenants),
+                         "shapes": [list(s) for s in sig], "first": first,
+                         "rounds": rep.measured_rounds, "bytes": rep.measured_bytes,
+                         "serial_rounds": rep.serial_rounds,
+                         "rounds_saved_ratio": rep.rounds_saved_ratio,
+                         "wall_s": rep.wall_s, "launches": counts,
+                         "captured_launches": stats["launches"],
+                         "trace_s": stats["trace_s"], "compile_s": stats["compile_s"]})
+        print(f"serve batch {list(rep.request_ids)} ({len(sig)} requests, shapes "
+              f"{[s[0] for s in sig]} x 3x32x32): {rep.measured_rounds} rounds, "
+              f"{rep.measured_bytes} B (= predicted), rounds saved "
+              f"{rep.rounds_saved_ratio:.2f}x, synchronized wall {rep.wall_s:.4f} s "
+              f"({'first call: generator loop + capture ' + format(stats['trace_s'], '.3f') + ' s + instantiation and first replay ' + format(stats['compile_s'], '.3f') + ' s' if first else 'warm replay'}); "
+              f"host launches {sum(v for k, v in counts.items() if k != 'pack_ring_masked')}, "
+              f"captured {sum(v for k, v in stats['launches'].items() if k != 'pack_ring_masked')}",
+              flush=True)
+    # every request against its serial oracle on the card
+    oracle = api.compile(afn, params, cfg, plan, api.Session(key=0, device="cuda"))
+    t0 = time.perf_counter()
+    for rid in sorted(r for rep in reports for r in rep.request_ids):
+        enc_key, key = prng.split(oracle.session.request_key(rid))
+        X = MPCTensor.from_plain(enc_key, inputs[rid])
+        os.environ["HB_ROUND_LOOP"] = "scan" if batch_of[rid] == 1 else "python"
+        want = oracle._run_streams([X], [iter(prng.split(key, 256))],
+                                   [beaver.InlineTTP()], comm_lib.CoalescingComm(),
+                                   params, auto_batch=False)[0]
+        if not torch.equal(futs[rid].result().data, want.data):
+            raise AssertionError(f"serve: request {rid}'s shares differ from its "
+                                 "serial oracle")
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    os.environ.pop("HB_ROUND_LOOP", None)
+    rows, records_s = _timed(lambda: search_kernel_phase(by_shape, path="serve"))
+    stats = engine.stats()
+    first_walls = [r["wall_s"] for r in rows_out if r["first"]]
+    warm_walls = [r["wall_s"] for r in rows_out if not r["first"]]
+    out = {"plan": "reduced", "max_batch": SERVE_MAX_BATCH, "carol_budget": need,
+           "batches": rows_out, "drain_s": drain_s, "oracle_s": oracle_s,
+           "kernel_records_s": records_s, "stats": stats,
+           "replay_entries_built": len(entries), "replay_entries": entries,
+           "memory_reserved_before": mem0, "memory_reserved_after": mem1,
+           "launches_by_shape": {k: {str(s): n for s, n in v.items()}
+                                 for k, v in by_shape.items()}}
+    print(f"serve: {len(reports)} batches ({stats['requests']} requests, 1 over "
+          f"budget, 1 shed) drained in {drain_s:.3f} s; engine rounds_saved_ratio "
+          f"{stats['rounds_saved_ratio']:.3f}; first batch of each signature "
+          f"{[round(w, 4) for w in first_walls]} s, warm {[round(w, 4) for w in warm_walls]}"
+          f" s; every request's shares equal its serial oracle ({oracle_s:.3f} s); "
+          f"replay cache: {len(entries)} entries built "
+          f"{[(round(e['trace_s'], 3), round(e['compile_s'], 3), e['n_rounds']) for e in entries]}"
+          f" (trace_s, compile_s, rounds), memory reserved {mem0} -> {mem1} B",
+          flush=True)
+    return out, rows, host
+
+
+def serve_lm_phase(lm_setup_):
+    """The private LM (``LM_ARCH`` at full width, ``LM_LAYERS`` layers) served
+    by an engine built with ``apply_fn=None`` on the exact plan: the
+    ``LM_STREAMS`` requests of ``LM_SEQ`` embedded tokens as one batch on
+    the generator loop (a plan with opens never runs on the replay).
+    Requires: rounds and bytes equal to the engine's merged schedule (the
+    ReLU rows merged by ``simulate_merged``, each product site's opens in
+    one round by ``simulate_open``) and to ``plan.schedule(streams=2,
+    auto_batch=False)``, the rounds to ``LM_SCHEDULE``'s; the plan's
+    kernels as often as its per-stream shapes say (``lm_shape_launches``
+    unmerged); each request's logits within the exact plan's tolerance of
+    the plaintext twin."""
+    from repro_torch import api, serve
+
+    cfg, params, plans, hs, want = lm_setup_
+    plan = plans["lm-exact"]
+    engine = serve.InferenceEngine(None, params, cfg, plan,
+                                   api.Session(key=0, device="cuda"))
+    records = []
+    _batch_hooks(engine, records)
+    futs = [engine.submit(t, h, request_id=i)
+            for i, (t, h) in enumerate(zip(("alice", "bob"), hs))]
+    t0 = time.perf_counter()
+    engine.flush()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    (rep,), (rec,) = list(engine.reports), records
+    sched = plan.schedule(streams=LM_STREAMS, auto_batch=False)
+    if rep.n_requests != LM_STREAMS or \
+            (rep.measured_rounds, rep.measured_bytes) != \
+            (rep.predicted_rounds, rep.predicted_bytes) or \
+            (rep.measured_rounds, rep.measured_bytes) != \
+            (sched.n_rounds, sched.bytes_tx) or \
+            rep.measured_rounds != LM_SCHEDULE["lm-exact"][0]:
+        raise AssertionError(f"serve-lm: {rep.n_requests} requests, measured "
+                             f"{rep.measured_rounds} rounds / {rep.measured_bytes} B, "
+                             f"predicted {rep.predicted_rounds} / "
+                             f"{rep.predicted_bytes}, schedule {sched.n_rounds} / "
+                             f"{sched.bytes_tx}, expected {LM_SCHEDULE['lm-exact'][0]} "
+                             "rounds")
+    per = {k: sum(v.values()) for k, v in
+           lm_shape_launches(plan, cfg, merged=False).items()}
+    counts = rec["counts"]
+    launched = {k for k, v in counts.items() if v and k != "pack_ring_masked"}
+    if launched != PATH_KERNELS["lm-exact"] or \
+            counts["pack_ring_masked"] != counts["pack_ring"] or \
+            any(counts[k] != v for k, v in per.items()):
+        raise AssertionError(f"serve-lm: launched {counts}, its plan says {per}")
+    got = torch.cat([f.result().reveal() for f in futs])
+    err, limit = float((got - want).abs().max()), ATOL + RTOL * float(want.abs().max())
+    if not torch.isfinite(got).all() or got.shape != want.shape or err > limit:
+        raise AssertionError(f"serve-lm: logits {tuple(got.shape)}, max error {err} "
+                             f"vs the plaintext twin, limit {limit}")
+    out = {"plan": "lm-exact", "requests": rep.n_requests,
+           "rounds": rep.measured_rounds, "bytes": rep.measured_bytes,
+           "main_path_bytes_auto_batched": LM_SCHEDULE["lm-exact"][1],
+           "wall_s": rep.wall_s, "drain_s": drain_s, "launches": counts,
+           "max_abs_err_vs_plaintext": err, "err_limit": limit}
+    print(f"serve-lm ({LM_ARCH}, {LM_LAYERS} layers, {LM_STREAMS} requests of "
+          f"{LM_SEQ} tokens, one batch on the generator loop, inline triples): "
+          f"{rep.measured_rounds} rounds, {rep.measured_bytes} B (= the merged "
+          f"schedule; the main path's auto-batched call: "
+          f"{LM_SCHEDULE['lm-exact'][1]} B), synchronized wall {rep.wall_s:.4f} s, "
+          f"launches {counts}, max |logit - plaintext| {err:.4g} (limit {limit:.4g})",
+          flush=True)
+    return out, counts
+
+
+def frontend_phase():
+    """The HTTP frontend over a ResNet-18 engine (reduced plan,
+    ``BatchPolicy(max_batch=1)``) with a fresh replay cache, so that the
+    pump captures while the clients run: ``len(FRONTEND_IDS)`` concurrent
+    ``POST /infer`` from threads (``urllib``), batch 1 and 2 in turn, with
+    explicit request ids, then ``GET /healthz`` and ``GET /stats``.
+    Requires: every reply's ``y`` equal to the reveal of the same request
+    id on a direct engine; no pump error; at least one capture during the
+    phase; the path's kernels launched; every wait bounded by a timeout.
+    The launch counters are zeroed before the frontend starts and read
+    after it closes."""
+    import json as json_lib
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch import api, serve
+    from repro_torch.api.compile import _REPLAY_CACHE, replay_cache_stats
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+
+    cfg, params, plans, _, _ = resnet_setup()
+    plan = plans["reduced"]
+
+    def afn(p, x, relu_fn=None):
+        return resnet.apply(p, x, cfg, relu_fn=relu_fn)
+
+    _REPLAY_CACHE.clear()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    gen = torch.Generator().manual_seed(31)
+    xs = {rid: torch.rand((1 + i % 2, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2 - 1
+          for i, rid in enumerate(FRONTEND_IDS)}
+    os.environ["HB_ROUND_LOOP"] = "scan"
+    engine = serve.InferenceEngine(afn, params, cfg, plan,
+                                   api.Session(key=0, device="cuda"),
+                                   policy=serve.BatchPolicy(max_batch=1))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    frontend = serve.Frontend(engine)
+    host, port = frontend.serve_background("127.0.0.1", 0)
+    base = f"http://{host}:{port}"
+
+    def http(method, path, body=None):
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=json_lib.dumps(body).encode() if body is not None else None)
+        with urllib.request.urlopen(req, timeout=FRONTEND_WAIT_S) as resp:
+            return resp.status, json_lib.loads(resp.read().decode())
+
+    replies, failures = {}, {}
+
+    def client(rid):
+        try:
+            replies[rid] = http("POST", "/infer", {
+                "tenant": f"tenant{rid % 3}", "x": xs[rid].tolist(),
+                "request_id": rid, "timeout_s": FRONTEND_WAIT_S})
+        except Exception as e:              # noqa: BLE001 (reported below)
+            failures[rid] = repr(e)
+
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(rid,)) for rid in FRONTEND_IDS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FRONTEND_WAIT_S)
+        wall_s = time.perf_counter() - t0
+        alive = [t.name for t in threads if t.is_alive()]
+        _, health = http("GET", "/healthz")
+        _, stats = http("GET", "/stats")
+    finally:
+        frontend.close()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    counts["pack_ring_masked"] = ops.pack_ring.masked
+    entries = replay_cache_stats()
+    mem1 = torch.cuda.memory_reserved()
+    if alive or failures or engine.pump_running:
+        raise AssertionError(f"frontend: clients alive {alive}, failed {failures}, "
+                             f"pump running {engine.pump_running}")
+    if health["last_pump_error"] is not None or engine.last_pump_error is not None:
+        raise AssertionError(f"frontend: pump error {health['last_pump_error']}")
+    if not entries:
+        raise AssertionError("frontend: nothing was captured during the phase")
+    launched = {k for k, v in counts.items() if v and k != "pack_ring_masked"}
+    if launched != PATH_KERNELS["reduced"]:
+        raise AssertionError(f"frontend: launched {counts}, its path runs "
+                             f"{sorted(PATH_KERNELS['reduced'])}")
+    if stats["requests"] != len(FRONTEND_IDS) or \
+            stats["frontend_requests"] != len(FRONTEND_IDS):
+        raise AssertionError(f"frontend: /stats {stats}")
+    direct = serve.InferenceEngine(afn, params, cfg, plan,
+                                   api.Session(key=0, device="cuda"),
+                                   policy=serve.BatchPolicy(max_batch=1))
+    dfuts = {rid: direct.submit(f"tenant{rid % 3}", xs[rid], request_id=rid)
+             for rid in FRONTEND_IDS}
+    direct.flush()
+    batches = []
+    for rid in FRONTEND_IDS:
+        status, reply = replies[rid]
+        want = dfuts[rid].result().reveal().cpu().numpy()
+        if status != 200 or reply["id"] != rid or \
+                not np.array_equal(np.asarray(reply["y"], np.float32), want):
+            raise AssertionError(f"frontend: request {rid} answered {status} "
+                                 f"{reply.get('id')}, y differs from the direct engine")
+        batches.append(reply["batch"])
+    os.environ.pop("HB_ROUND_LOOP", None)
+    out = {"requests": len(FRONTEND_IDS), "wall_s": wall_s, "stats": stats,
+           "healthz": health, "launches": counts, "replay_entries": entries,
+           "memory_reserved_before": mem0, "memory_reserved_after": mem1,
+           "batches": batches}
+    print(f"frontend: {len(FRONTEND_IDS)} concurrent POST /infer (batch 1 and 2 in "
+          f"turn, one request per batch) answered in {wall_s:.3f} s, every y equal "
+          f"to the direct engine's reveal; {len(entries)} replays captured while "
+          f"the clients ran {[(round(e['trace_s'], 3), round(e['compile_s'], 3)) for e in entries]}"
+          f" (trace_s, compile_s); /healthz last_pump_error None; /stats requests "
+          f"{stats['requests']}, rounds_saved_ratio {stats['rounds_saved_ratio']:.3f};"
+          f" memory reserved {mem0} -> {mem1} B; launches {counts}", flush=True)
+    return out, counts
+
+
+def seed_oracle_phase():
+    """The frozen seed oracle (``core/gmw_ref.py``) against the fused engine
+    on the card: ``gmw_ref.relu`` at the stem's shape (one stream, 65 536
+    elements) at (64, 0), (21, 13) and (21, 13) with the cone must equal
+    ``gmw.relu`` bit for bit, and launch only ``beaver_and`` (in its plain
+    form), once per AND; both paths' exchanges (``CountingComm``) and
+    synchronized walls printed (a check, not a benchmark).  Then
+    ``BENCH_relu.json``'s ``multigroup``: through the seed oracle one group
+    after another (31 swaps, 696 576 B) and through ``gmw.relu_many``
+    fused (10 rounds, 696 576 B), with the same keys and triples per group:
+    the same shares, hence the same reveals."""
+    from repro_torch.core import beaver, comm as comm_lib, fixed, gmw, gmw_ref, prng, \
+        schedule, shares
+    from repro_torch.kernels import ops
+
+    def shared(n, seed):
+        gen = torch.Generator().manual_seed(seed)
+        x = (torch.rand((n,), generator=gen) * 7.8 - 3.9).cuda()
+        return shares.share(prng.PRNGKey(seed, "cuda"), fixed.encode(x))
+
+    def run(fn, comm):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(comm)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        return out, time.perf_counter() - t0, counts
+
+    n = RELU_GROUPS[0][0]
+    x = shared(n, 41)
+    cases, seed_launches = [], {}
+    for name, k, m, cone in (("exact", 64, 0, False), ("reduced", 21, 13, False),
+                             ("reduced-cone", 21, 13, True)):
+        tri = beaver.gen_relu_triples(prng.PRNGKey(42, "cuda"), n, k - m, cone=cone)
+        key = prng.PRNGKey(43, "cuda")
+        cm_s, cm_f = comm_lib.CountingComm(), comm_lib.CountingComm()
+        seed, seed_s, seed_counts = run(
+            lambda c: gmw_ref.relu(key, x, tri, c, k=k, m=m, cone=cone), cm_s)
+        fused, fused_s, fused_counts = run(
+            lambda c: gmw.relu(key, x, tri, c, k=k, m=m, cone=cone), cm_f)
+        ands = schedule.stream_rounds(k - m, cone=cone) - 3   # less A2B, B2A, mult
+        if not torch.equal(seed, fused):
+            raise AssertionError(f"seed-oracle {name}: shares differ from gmw.relu")
+        if seed_counts != {"beaver_and": ands}:
+            raise AssertionError(f"seed-oracle {name}: launched {seed_counts}, the "
+                                 f"seed path runs beaver_and {ands} times")
+        for kn, v in seed_counts.items():
+            seed_launches[kn] = seed_launches.get(kn, 0) + v
+        cases.append({"name": name, "k": k, "m": m, "cone": cone, "n": n,
+                      "seed_swaps": cm_s.n_swaps, "seed_bytes": cm_s.bytes_tx,
+                      "fused_swaps": cm_f.n_swaps, "fused_bytes": cm_f.bytes_tx,
+                      "seed_wall_s": seed_s, "fused_wall_s": fused_s,
+                      "seed_launches": seed_counts, "fused_launches": fused_counts})
+        print(f"seed-oracle {name} ({k}, {m}) at {n} elements: shares equal the fused "
+              f"engine's; seed {cm_s.n_swaps} exchanges / {cm_s.bytes_tx} B in "
+              f"{seed_s:.4f} s (launches {seed_counts}), fused {cm_f.n_swaps} / "
+              f"{cm_f.bytes_tx} B in {fused_s:.4f} s (launches {fused_counts})",
+              flush=True)
+    groups = json.load(open(os.path.join(ROOT, "BENCH_relu.json")))["multigroup"]["groups"]
+    specs = [(g["n"], g["k"], g["m"]) for g in groups]
+    xs = [shared(gn, 50 + i) for i, (gn, _, _) in enumerate(specs)]
+    trs = [beaver.gen_relu_triples(prng.PRNGKey(60 + i, "cuda"), gn, gk - gm)
+           for i, (gn, gk, gm) in enumerate(specs)]
+    keys = [prng.PRNGKey(40 + i, "cuda") for i in range(len(specs))]
+    cm, cc = comm_lib.CountingComm(), comm_lib.CoalescingComm()
+    seed, seed_s, seed_counts = run(
+        lambda c: [gmw_ref.relu(kk, xx, tt, c, k=gk, m=gm)
+                   for kk, xx, tt, (_, gk, gm) in zip(keys, xs, trs, specs)], cm)
+    fused, fused_s, fused_counts = run(
+        lambda c: gmw.relu_many(keys, xs, trs, c, [(gk, gm) for _, gk, gm in specs]), cc)
+    for kn, v in seed_counts.items():
+        seed_launches[kn] = seed_launches.get(kn, 0) + v
+    if (cm.n_swaps, cm.bytes_tx, cc.n_rounds, cc.bytes_tx) != (31, 696576, 10, 696576):
+        raise AssertionError(f"multigroup: seed {cm.n_swaps} swaps / {cm.bytes_tx} B, "
+                             f"fused {cc.n_rounds} / {cc.bytes_tx}; expected 31 / "
+                             "696576, 10 / 696576")
+    for s, f in zip(seed, fused):
+        if not torch.equal(s, f) or not torch.equal(
+                fixed.decode(shares.reconstruct(s)), fixed.decode(shares.reconstruct(f))):
+            raise AssertionError("multigroup: the seed and the fused outputs differ")
+    multigroup = {"groups": groups, "swaps_seed": cm.n_swaps, "bytes_seed": cm.bytes_tx,
+                  "swaps_fused": cc.n_rounds, "bytes_fused": cc.bytes_tx,
+                  "seed_wall_s": seed_s, "fused_wall_s": fused_s,
+                  "seed_launches": seed_counts, "fused_launches": fused_counts}
+    print(f"seed-oracle multigroup {specs}: seed {cm.n_swaps} swaps / {cm.bytes_tx} B "
+          f"in {seed_s:.4f} s, fused {cc.n_rounds} rounds / {cc.bytes_tx} B in "
+          f"{fused_s:.4f} s; same shares and reveals", flush=True)
+    return {"stem": cases, "multigroup": multigroup}, seed_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1947,6 +2485,15 @@ def main() -> None:
     search, search_rows, search_launches = search_phase()
     for k, v in search_launches.items():
         launches.setdefault(k, {})["search"] = v
+    served, serve_rows, serve_launches = serve_phase()
+    served_lm, serve_lm_launches = serve_lm_phase(lm)
+    front, front_launches = frontend_phase()
+    seed_oracle, seed_launches = seed_oracle_phase()
+    for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
+                         ("frontend", front_launches), ("seed-oracle", seed_launches)):
+        for k in SHAPE_KERNELS:
+            launches.setdefault(k, {})[path] = counts.get(k, 0)
+    extra += serve_rows
     search["per_call_sums"]["ring_matmul"] = next(
         r["per_call_sums"] for r in rows + extra
         if r["name"] == "ring_matmul" and "per_call_sums" in r)
@@ -1965,7 +2512,9 @@ def main() -> None:
                    "main_path": runs, "lm_path": lm_runs, "lm_relu": lm_relu,
                    "ragged_merge": ragged,
                    "merge": merge,
-                   "stem_breakdown": breakdown, "search": search}, f, indent=1)
+                   "stem_breakdown": breakdown, "search": search,
+                   "serve": served, "serve_lm": served_lm, "frontend": front,
+                   "seed_oracle": seed_oracle}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
 

@@ -4,8 +4,9 @@ for Hopper, a port of the JAX package ``repro`` (which stays the reference).
 Same layout as the reference, so each module names its twin:
 
   core/     ring (Z/2^64 as int64), prng (jax-identical threefry), fixed,
-            shares, comm, beaver, gmw (round-fused engine), ring_linalg,
-            mpc_tensor, plus the copied schedule/hummingbird/costmodel
+            shares, comm, beaver, gmw (round-fused engine), gmw_ref (the
+            frozen seed protocol, the oracle), ring_linalg, mpc_tensor,
+            plus the copied schedule/hummingbird/costmodel
   kernels/  CUDA kernels (``csrc/``) behind ``ops`` wrappers, their plain
             PyTorch versions (``ref``) and the build (``build``)
   api/      Plan, Session, compile -> PrivateModel
@@ -18,6 +19,9 @@ Same layout as the reference, so each module names its twin:
   search/   the paper's offline phase: MPC simulator, HummingBird-eco and
             -b, the STE finetune (over ``data/`` ImagePipeline and
             ``train/`` SGD)
+  serve/    request-level serving: ``InferenceEngine`` (admission,
+            ``BatchPolicy``, tenants, the pump) and the HTTP ``Frontend``
+  runtime/  the round-loop choice and the straggler watchdog
 
 Entry points run on the GPU unless given ``device="cpu"``: ``device=None``
 means CUDA and raises without a card (``device.resolve``).

@@ -14,6 +14,8 @@ from typing import (Iterable, List, Optional, Protocol, Sequence, Tuple, Union,
 import torch
 
 from .. import errors
+# the typed triple errors, re-exported here as the reference's beaver does
+from ..errors import TripleBudgetExceeded, TriplePoolExhausted  # noqa: F401
 from . import prng, ring, ring_linalg, shares
 from .schedule import cone_sets, n_levels
 

@@ -15,7 +15,7 @@ reference, word for word, and the byte counters agree.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -162,3 +162,25 @@ class CoalescingComm:
 
     def party_slice(self, full: torch.Tensor) -> torch.Tensor:
         return self.base.party_slice(full)
+
+
+def find_comm(comm, cls):
+    """First wrapper of type ``cls`` in a comm stack (walks the ``.base``
+    chain).  Lets callers reach a specific layer's counters without
+    knowing how the stack was composed."""
+    seen = set()
+    while comm is not None and id(comm) not in seen:
+        seen.add(id(comm))
+        if isinstance(comm, cls):
+            return comm
+        comm = getattr(comm, "base", None)
+    return None
+
+
+def find_resilient(comm) -> Optional[object]:
+    """The ``ResilientComm`` inside a wrapper stack, if any (the serving
+    engine reads its recovery counters per batch).  The port has no
+    ``ResilientComm`` yet (ROADMAP queue 1, item 6), so no stack holds one
+    and this returns None; once it is ported this looks it up with
+    ``find_comm``, as the reference does."""
+    return None

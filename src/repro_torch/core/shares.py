@@ -71,3 +71,10 @@ def xor_share_packed(key: torch.Tensor, words: torch.Tensor,
         first = first ^ m
     return torch.stack([first] + masks, dim=0)
 
+
+def xor_reconstruct(ws: torch.Tensor) -> torch.Tensor:
+    """XOR the binary shares over the leading party dimension."""
+    out = ws[0]
+    for p in range(1, ws.shape[0]):
+        out = out ^ ws[p]
+    return out

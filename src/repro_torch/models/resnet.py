@@ -11,11 +11,14 @@ carry across with ``params_from_jax``.  Two evaluation paths read it:
     streams, BatchNorm folded into the preceding conv and max-pool removed
     (paper §2.3), registered with ``api.register_mpc_forward``.
 
+``relu_plan``, ``gen_mpc_triples``, ``mpc_apply`` and ``mpc_apply_many``
+are the reference's deprecated shims, thin layers over ``api``.
+
 ReLU layers form the paper's five groups (stem + 4 stages).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..api import Plan, register_mpc_forward, trace_plan
 from ..configs.resnet import ResNetConfig
-from ..core import MPCTensor
+from ..core import MPCTensor, beaver
 from ..core.hummingbird import HBConfig
 from ..device import Device, resolve as resolve_device
 
@@ -233,3 +236,63 @@ def _mpc_forward(params, hs: List[MPCTensor], cfg: ResNetConfig, relu_fn,
 
 # the generic compiler resolves this forward from the config type
 register_mpc_forward(ResNetConfig, _mpc_forward)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated shims (thin layers over ``api``)
+# ---------------------------------------------------------------------------
+
+def relu_plan(params, cfg: ResNetConfig, batch: int, hw: int = 0):
+    """Deprecated shim over ``api.trace_plan``: (n_elements, group) per ReLU
+    call, in call order."""
+    plan = trace(params, cfg, batch, hw)
+    return [(c.n_elements, c.group) for c in plan.calls]
+
+
+def gen_mpc_triples(key, plan, hb: Optional[HBConfig], cfg: ResNetConfig,
+                    cone: bool = False):
+    """Deprecated shim over ``beaver.gen_plan_triples``: one ReluTriples
+    bundle per ReLU call (None for culled width-0 groups), on the key's
+    device.  ``plan`` is the (n_elements, group) list from ``relu_plan``."""
+    hb_layers = hb_or_exact(hb, cfg).layers
+    return beaver.gen_plan_triples(
+        key, [(n, hb_layers[g].width) for n, g in plan], cone=cone)
+
+
+def _compiled(params, cfg: ResNetConfig, hb, comm, triples, cone, device):
+    """Shared shim body: bind the old threaded arguments into a Plan and a
+    Session on the inputs' device, and compile (``api`` is the first-class
+    entry point)."""
+    from .. import api
+
+    provider = beaver.TriplePool(triples) if triples is not None else None
+    session = api.Session(comm=comm, provider=provider, device=device)
+    plan = api.Plan.from_hb(hb_or_exact(hb, cfg), cone=cone, name=cfg.name)
+    return api.compile(
+        lambda p, x, relu_fn=None: apply(p, x, cfg, relu_fn=relu_fn),
+        params, cfg, plan, session)
+
+
+def mpc_apply(params, x: MPCTensor, cfg: ResNetConfig, key,
+              hb: Optional[HBConfig] = None, comm=None,
+              triples: Optional[list] = None, cone: bool = False) -> MPCTensor:
+    """Deprecated shim over ``api.compile``: secret-shared inference of one
+    input, on its device.  ReLU via GMW with the HummingBird (k, m) of each
+    group; ``triples`` (one bundle or None per ReLU call) are consumed in
+    call order, otherwise derived inline from the call keys."""
+    return _compiled(params, cfg, hb, comm, triples, cone, x.device)(x, key=key)
+
+
+def mpc_apply_many(params, xs: Sequence[MPCTensor], cfg: ResNetConfig, key,
+                   hb: Optional[HBConfig] = None, comm=None,
+                   triples: Optional[list] = None,
+                   cone: bool = False) -> List[MPCTensor]:
+    """Deprecated shim over ``api.compile``: N sibling inference streams
+    share ReLU rounds (max-over-streams rounds per layer, one coalesced
+    exchange per round).  ``triples`` keeps the offline split: one entry per
+    ReLU call, in call order, each a sequence with one bundle (or None for
+    culled groups) per stream."""
+    flat = ([b for call in triples for b in call]
+            if triples is not None else None)
+    return _compiled(params, cfg, hb, comm, flat, cone,
+                     xs[0].device)(list(xs), key=key)

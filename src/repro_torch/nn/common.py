@@ -1,5 +1,6 @@
 """Shared neural-net primitives of the dense LM (twin of the pieces of the
-reference's ``nn/common.py`` that the private LM needs).
+reference's ``nn/common.py`` that the private LM needs), and the MPC
+bridge ``mpc_relu_many``.
 
 Functional style as in the reference: ``*_init`` builds param trees
 (plain dicts of tensors) from an explicit ``torch.Generator`` on its
@@ -63,3 +64,22 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
     if gated:
         p["w_gate"] = dense_init(gen, d_model, d_ff, dtype)["w"]
     return p
+
+
+# ---------------------------------------------------------------------------
+# MPC bridge: round-shared ReLU over sibling secret-shared tensors
+# ---------------------------------------------------------------------------
+
+def mpc_relu_many(keys, tensors, hbs=None, comm=None, triples_list=None,
+                  cone: bool = False, auto_batch: bool = True):
+    """Apply GMW ReLU to sibling MPCTensors with shared protocol rounds
+    (``core.mpc_tensor.relu_many``): every communication round across the
+    sibling group is one coalesced exchange, so N parallel branches pay
+    max-of-N rounds, and identical-(shape, k, m) branches auto-batch into
+    one protocol stream per round.  ``keys`` is one PRNG key per tensor;
+    ``hbs`` one HummingBird (k, m) per tensor (default the exact 64-bit
+    ring)."""
+    from ..core import mpc_tensor      # lazy: keep the plaintext pieces light
+    return mpc_tensor.relu_many(keys, tensors, comm=comm, hbs=hbs,
+                                triples_list=triples_list, cone=cone,
+                                auto_batch=auto_batch)

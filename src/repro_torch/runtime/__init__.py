@@ -1,4 +1,6 @@
-"""Round-loop backend selection (twin of the reference's ``repro.runtime``)."""
+"""Round-loop backend selection and straggler detection (twin of the
+reference's ``repro.runtime``)."""
 from .loop import compiled_eligible, round_loop_mode
+from .watchdog import StragglerWatchdog
 
-__all__ = ["compiled_eligible", "round_loop_mode"]
+__all__ = ["compiled_eligible", "round_loop_mode", "StragglerWatchdog"]

@@ -663,3 +663,102 @@ def test_cuda_finetune_is_reproducible():
     assert l1 == l2 and len(l1) == 2
     from repro_torch.train.optimizer import tree_leaves
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+
+
+class _TinyCfg:
+    name = "tiny-mlp-cuda"
+
+
+def _tiny_apply(params, x, relu_fn=None):
+    rf = relu_fn if relu_fn is not None else (lambda v, g: torch.relu(v))
+    return rf(rf(x @ params["w1"], 0) @ params["w2"], 1)
+
+
+def _tiny_forward(params, hs, cfg, relu_fn, comm):
+    hs = relu_fn([h.matmul_public(params["w1"]) for h in hs], 0)
+    return relu_fn([h.matmul_public(params["w2"]) for h in hs], 1)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_canonical_mix_equals_serial_oracle(monkeypatch):
+    """The serving engine on the card (a 2-group MLP, (21, 13) plan) on the
+    captured replay: the canonical mix (batches 2, 2, 3 from two tenants)
+    as one micro-batch, then the same mix again (a warm replay of the same
+    signature); every request's shares equal its serial oracle on the card
+    (one stream, ``request_key(id)``, a fresh ``InlineTTP``, the generator
+    loop) and the CPU engine's; rounds and bytes equal the prediction.
+    Then the pump with three submitting threads, each future waited on
+    with a timeout and revealed under ``device_lock``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+
+    from repro_torch import api, serve
+    from repro_torch.core import beaver, comm, mpc_tensor, prng
+
+    api.register_mpc_forward(_TinyCfg, _tiny_forward)
+    gen = torch.Generator().manual_seed(5)
+    weights = {"w1": torch.randn((6, 5), generator=gen) * 0.4,
+               "w2": torch.randn((5, 4), generator=gen) * 0.4}
+    plan = api.trace_plan(_tiny_apply, weights, (2, 6))
+    plan = plan.with_hb(api.HBConfig((api.HBLayer(k=21, m=13),) * 2,
+                                     plan.group_elements))
+    xs = [torch.randn((b, 6), generator=gen) for b in (2, 2, 3)]
+
+    def engine(dev):
+        params = {k: v.to(dev) for k, v in weights.items()}
+        return serve.InferenceEngine(_tiny_apply, params, _TinyCfg(), plan,
+                                     api.Session(key=0, device=dev)), params
+
+    def oracle(x, rid, params):
+        monkeypatch.setenv("HB_ROUND_LOOP", "python")
+        session = api.Session(key=0, device="cuda")
+        model = api.compile(_tiny_apply, params, _TinyCfg(), plan, session)
+        enc_key, key = prng.split(session.request_key(rid))
+        X = mpc_tensor.MPCTensor.from_plain(enc_key, x.cuda())
+        out = model._run_streams([X], [iter(prng.split(key, 256))],
+                                 [beaver.InlineTTP()], comm.CoalescingComm(),
+                                 params, auto_batch=False)[0]
+        monkeypatch.setenv("HB_ROUND_LOOP", "scan")
+        return out
+
+    monkeypatch.setenv("HB_ROUND_LOOP", "scan")
+    cpu, _ = engine("cpu")
+    want_cpu = [cpu.submit(t, x) for t, x in zip(("alice", "bob", "alice"), xs)]
+    cpu.flush()
+    card, params = engine("cuda")
+    for rnd in range(2):
+        futs = [card.submit(t, x, request_id=3 * rnd + i)
+                for i, (t, x) in enumerate(zip(("alice", "bob", "alice"), xs))]
+        card.flush()
+        rep = card.reports[-1]
+        assert rep.n_requests == 3 and rep.wall_s > 0
+        assert (rep.measured_rounds, rep.measured_bytes) == \
+            (rep.predicted_rounds, rep.predicted_bytes)
+        for i, (f, x) in enumerate(zip(futs, xs)):
+            got = f.result().data
+            assert got.device.type == "cuda"
+            assert torch.equal(got, oracle(x, 3 * rnd + i, params).data)
+            if rnd == 0:
+                assert torch.equal(got.cpu(), want_cpu[i].result().data)
+    card.start_pump(interval_s=0.002, max_wait_s=0.02)
+    try:
+        got = {}
+
+        def client(i):
+            fut = card.submit("carol", xs[i], request_id=10 + i)
+            out = fut.result(timeout_s=120.0)
+            with card.device_lock:
+                got[i] = out.data.cpu()
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+            assert not t.is_alive()
+        assert card.last_pump_error is None
+    finally:
+        card.stop_pump()
+    for i, x in enumerate(xs):
+        assert torch.equal(got[i], oracle(x, 10 + i, params).data.cpu())

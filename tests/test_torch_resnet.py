@@ -320,7 +320,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert ROOT / "src" / "repro_torch" / "models" / "lm.py" in files
     assert ROOT / "src" / "repro_torch" / "nn" / "approx" / "pwl.py" in files
     for sub in ("search/engine.py", "search/simulator.py", "search/finetune.py",
-                "data/pipeline.py", "train/optimizer.py", "nn/rope_tables.py"):
+                "data/pipeline.py", "train/optimizer.py", "nn/rope_tables.py",
+                "serve/engine.py", "serve/frontend.py", "runtime/watchdog.py",
+                "core/gmw_ref.py"):
         assert ROOT / "src" / "repro_torch" / sub in files, sub
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-(``tools/ring_matmul_bench.py`` times ring_matmul alone, with this
-script's shapes and timing, for another checkout's kernel or a variant;
+(``tools/ring_matmul_bench.py`` and ``tools/ring_matmul_ss_bench.py`` time
+ring_matmul and ring_matmul_ss alone, with this script's shapes and
+timing, for another checkout's kernel or a variant;
 ``tools/bitpack_bench.py`` times unpack and pack at every main-path shape
 of the word-route and the bit-route triple merge; ``tools/gmw_bench.py``
 times the adders' kernels at every main-path shape, and the online wall.)
@@ -40,8 +41,9 @@ Phases (any failure raises, and the script exits non-zero):
    each (k, m, E), unpack at each sign plane, ring_matmul at its 4 shapes
    (``LM_RING_MATMUL_SHAPES``) and ring_matmul_ss (the secret x secret ring
    matmul) at each product, each kernel's sum per LM call beside its bound;
-   ring_matmul_ss also at a longer attention and at K = 16 512, past its
-   fold (``RING_MATMUL_SS_OTHER_SHAPES``), with 36 x ``torch._int_mm`` as
+   ring_matmul_ss also at 512 tokens (QK^T, A@V and their Beaver
+   combines) and at K = 16 512, past its 4096 split
+   (``RING_MATMUL_SS_OTHER_SHAPES``), with 36 x ``torch._int_mm`` as
    a yardstick where that takes the shape;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
@@ -249,9 +251,11 @@ LM_SCHEDULE = {"lm-exact": (46, 740753408), "lm-reduced": (40, 210809856)}
 LM_RING_MATMUL_SHAPES = ((16, 1024, 1024, 16), (16, 1024, 2816, 8),
                          (16, 2816, 1024, 4), (16, 1024, 151936, 2))
 # ring_matmul_ss's shapes (B, M, K, N) off the LM path: a longer attention
-# (512 tokens, 16 heads) and K past the kernel's 4096 fold; its LM shapes
-# and launches are read from the plans (``lm_shape_launches``)
+# (512 tokens, 16 heads: QK^T, A@V, and their Beaver combines, the parties'
+# cells stacked and K doubled) and K past the kernel's 4096 split; its LM
+# shapes and launches are read from the plans (``lm_shape_launches``)
 RING_MATMUL_SS_OTHER_SHAPES = ((16, 512, 64, 512), (16, 512, 512, 64),
+                               (32, 512, 128, 512), (32, 512, 1024, 64),
                                (1, 64, 16512, 64))
 
 
@@ -356,13 +360,19 @@ def sass_census() -> dict:
     """Tensor-core and IMAD instructions in the compiled ring_matmul and
     ring_matmul_ss kernels, read from their SASS (``cuobjdump -sass``; a
     static count, prologue and epilogue included), and their registers and
-    spills from ptxas's ``-v`` report (ring_matmul's shared memory is
-    dynamic: ``kSmem`` in the source).  Fails if one has no IMMA or
-    spills."""
+    spills from ptxas's ``-v`` report (the large forms' shared memory is
+    dynamic: ``kSmem`` in the sources).  Every kernel function of the
+    sources: ring_matmul's one, ring_matmul_ss's large form and its small
+    form's two instances (plain and transposed).  Fails if one is missing,
+    has no tensor-core instruction (IMMA or IGMMA) or spills."""
     out = {}
-    for source, kernel in (("ring_matmul.cu", "ring_matmul_kernel"),
-                           ("ring_matmul_ss.cu", "ring_matmul_ss_kernel")):
-        out.update(_sass_census(source, kernel))
+    for source, kernel, count in (("ring_matmul.cu", "ring_matmul_kernel", 1),
+                                  ("ring_matmul_ss.cu", "ring_matmul_ss_kernel", 3)):
+        found = _sass_census(source, kernel)
+        if len(found) != count:
+            raise AssertionError(f"{source}: {len(found)} kernels named {kernel}*, "
+                                 f"expected {count}: {sorted(found)}")
+        out.update(found)
     return out
 
 

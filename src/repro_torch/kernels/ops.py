@@ -38,7 +38,8 @@ the card (design notes in the CUDA sources):
 - ``ring_matmul_ss``: no Pallas kernel; the reference's jnp einsum of
   ``core/ring_linalg.py:72`` ``matmul_ring`` (secret x secret, mod 2^64);
   max(bytes, 8 per x, y and output value, over 3.35 TB/s; 36 u8 byte-plane
-  products over the 1979 TOP/s int8 tensor cores).
+  products over the 1979 TOP/s int8 tensor cores).  Two forms: 64 x 64
+  block tiles from M = 64 on, 16 x 8 warp tiles below (``ss_form``).
 - ``pack`` and ``pack_ring``: ``kernels/bitpack.py:44`` ``pack_pallas``;
   bytes, each value read once (4 or 8 bytes) and 4 per word written;
   ``pack_ring``'s masked form (the A2B round's ``packed ^ mask``) also
@@ -70,7 +71,7 @@ _SIGNATURES = {
     "hb_cone_step": ("gmw_round.cu",
                      [_P, _P, _I, _P, _I] + [_P] * 9 + [_I] * 10 + [_P]),
     "hb_ring_matmul": ("ring_matmul.cu", [_P] * 3 + [_I] * 3 + [_P]),
-    "hb_ring_matmul_ss": ("ring_matmul_ss.cu", [_P] * 3 + [_I] * 4 + [_P]),
+    "hb_ring_matmul_ss": ("ring_matmul_ss.cu", [_P] * 3 + [_I] * 5 + [_P]),
     "hb_pack": ("bitpack.cu", [_P, _I, _I, _P, _I, _P]),
     "hb_pack_ring": ("bitpack.cu", [_P, _I, _I, _P, _I, _I, _P, _P]),
     "hb_unpack": ("bitpack.cu", [_P, _I, _I, _I, _I, _P, _P]),
@@ -471,9 +472,27 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+# ring_matmul_ss's two forms (csrc/ring_matmul_ss.cu): the large form's
+# 64 x 64 block tiles from this many rows on, the small form's 16 x 8 warp
+# tiles below it
+SS_LARGE_ROWS = 64
+SS_FORMS = ("large", "small")
+
+
+def ss_form(m: int) -> str:
+    """The form ``ring_matmul_ss`` launches for [., m, .] @ [., ., .]."""
+    return "large" if m >= SS_LARGE_ROWS else "small"
+
+
+def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor,
+                   form: Optional[str] = None) -> torch.Tensor:
     """int64 ring [B, M, K] @ int64 ring [B, K, N] mod 2^64 -> int64
-    [B, M, N]: every batch cell in one kernel launch."""
+    [B, M, N]: every batch cell in one kernel launch.
+
+    ``form`` ("large" or "small") overrides the kernel's form, which
+    ``ss_form`` otherwise picks from M; both compute the same product.
+    Where the launch splits K it also zeroes the output first (a memset on
+    the same stream), and the work units add their partials into it."""
     if _on_cpu(x):
         return ref.ring_matmul_ss(x, y)
     _check("ring_matmul_ss", [x, y], torch.int64)
@@ -482,14 +501,18 @@ def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"ring_matmul_ss: shapes {tuple(x.shape)} @ {tuple(y.shape)}")
     b, m, k = x.shape
     n = y.shape[2]
-    if b * ((m + 31) // 32) * ((n + 31) // 32) >= 2 ** 31:
-        raise ValueError(f"ring_matmul_ss: [{b}, {m}, {n}] exceeds the kernel's grid")
+    form = ss_form(m) if form is None else form
+    if form not in SS_FORMS:
+        raise ValueError(f"ring_matmul_ss: form {form!r}, not one of {SS_FORMS}")
+    if form == "small" and \
+            b * ((max(m, n) + 15) // 16) * ((min(m, n) + 7) // 8) // 4 >= 2 ** 31:
+        raise ValueError(f"ring_matmul_ss: [{b}, {m}, {n}] exceeds the small form's grid")
     out = torch.empty((b, m, n), dtype=torch.int64, device=x.device)
     if b and m and n:
         if k == 0:
             return out.zero_()
         _launch("hb_ring_matmul_ss", x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                b, m, k, n)
+                b, m, k, n, SS_FORMS.index(form))
         ring_matmul_ss.launches += 1
     return out
 

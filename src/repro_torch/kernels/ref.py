@@ -14,10 +14,11 @@ import torch
 # The most K one int32 shift accumulator of the ring_matmul kernel takes:
 # one k adds at most 4 * 255 * 128 + 255 to a shift's sum, so K <= 16416.
 FOLD_K = 16384
-# The most K the ring_matmul_ss kernel contracts into its int32 shift sums
-# before folding them into 64 bits: one k adds at most 8 * 255^2 to a
-# shift's (non-negative) sum, so 4096 of K stay below 2^31.
-FOLD_K_SS = 4096
+# The most K one work unit of the ring_matmul_ss kernel sums into its int32
+# shift accumulators: one k adds at most 8 * 255^2 to a shift's
+# (non-negative) sum, so 4096 of K stay below 2^31.  A longer K is split
+# into units whose 64-bit partials add in the ring.
+SPLIT_K_SS = 4096
 
 
 def _per_party(sel: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -207,23 +208,26 @@ def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def ring_matmul_ss_digits(x: torch.Tensor, y: torch.Tensor,
-                          fold: int = FOLD_K_SS) -> torch.Tensor:
+                          chunk: int = SPLIT_K_SS) -> torch.Tensor:
     """The ring_matmul_ss kernel's own arithmetic (``csrc/ring_matmul_ss.cu``):
-    both operands' 8 raw bytes as unsigned digits, one int32 sum per shift
-    s = i + j < 8 over at most ``fold`` of K (36 byte-plane products),
-    recombined as sum_s acc_s << 8s mod 2^64.  Raises ``OverflowError``
-    where a shift's sum leaves the int32 range, as the kernel's
-    accumulators would."""
+    both operands' 8 raw bytes as unsigned digits, and K split into chunks
+    of at most ``chunk``, as the kernel's split-K work units; in each chunk
+    one int32 sum per shift s = i + j < 8 (36 byte-plane products), whose
+    64-bit partial sum_s acc_s << 8s adds into the output mod 2^64.  Raises
+    ``OverflowError`` where a shift's sum over a chunk leaves the int32
+    range, as the kernel's accumulators would."""
     k = x.shape[2]
     u = [(x >> (8 * i)) & 0xFF for i in range(8)]
     v = [(y >> (8 * j)) & 0xFF for j in range(8)]
     out = torch.zeros(x.shape[:2] + y.shape[2:], dtype=torch.int64, device=x.device)
-    for k0 in range(0, k, fold):
-        ks = slice(k0, k0 + fold)
+    for k0 in range(0, k, chunk):
+        ks = slice(k0, k0 + chunk)
+        partial = torch.zeros_like(out)
         for s in range(8):
             acc = sum(u[i][:, :, ks] @ v[s - i][:, ks] for i in range(s + 1))
             if acc.numel() and int(acc.max()) >= 2 ** 31:
                 raise OverflowError(f"ring_matmul_ss_digits: shift {s}'s sum over "
-                                    f"{min(fold, k - k0)} of K leaves int32")
-            out += acc << (8 * s)
+                                    f"{min(chunk, k - k0)} of K leaves int32")
+            partial += acc << (8 * s)
+        out += partial
     return out

@@ -497,12 +497,18 @@ def test_cuda_graph_replay_equals_eager_and_cpu(plan_name, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_ring_matmul_ss_shapes_and_fold():
-    """The secret x secret ring matmul against its plain version: the LM
-    path's products (16 heads x 2 parties of 8 x 64 @ 64 x 8 and 8 x 8 @
-    8 x 64, and the Beaver combine's K-doubled [E | A] @ [B ; F]), a longer
-    attention (512 x 64 @ 64 x 512 and 512 x 512 @ 512 x 64), ragged tiles,
-    K past the 4096 fold with every byte 0xFF (each shift's largest sum),
-    K = 0; one launch per call."""
+    """The secret x secret ring matmul against its plain version, bit for
+    bit: the LM path's products (16 heads x 2 parties of 8 x 64 @ 64 x 8
+    and 8 x 8 @ 8 x 64, and the Beaver combine's K-doubled [E | A] @
+    [B ; F]), 512 tokens (512 x 64 @ 64 x 512, 512 x 512 @ 512 x 64, and
+    the two Beaver combines at K = 128 and 1024); both forms on each side
+    of the wrapper's choice (M = 63 and 64) and at tiles ragged in M, N
+    and K (odd K and N take the 8-byte copies); the split-K edges (K =
+    4096, 4097, 16 512, and 16 544 where only the 4096 cap cuts K) with every
+    byte 0xFF (each shift's largest sum) in both forms; a batch large
+    enough that the small form packs 4 cells
+    into a block; K = 0; two runs identical, and a CUDA-graph replay equal
+    to the eager call, split and unsplit; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator().manual_seed(12)
@@ -511,21 +517,65 @@ def test_cuda_ring_matmul_ss_shapes_and_fold():
         return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=gen,
                              dtype=torch.int64).cuda()
 
-    shapes = [(32, 8, 64, 8), (32, 8, 8, 64), (32, 8, 128, 8), (32, 8, 16, 64),
-              (16, 512, 64, 512), (16, 512, 512, 64), (3, 33, 70, 31), (1, 1, 1, 1),
-              (2, 40, 4096 + 4096 + 320, 9)]
-    ops.reset_launches()
-    for b, m, k, n in shapes:
+    calls = 0
+
+    def check(b, m, k, n, forms=(None,)):
+        nonlocal calls
         x, y = ring(b, m, k), ring(b, k, n)
-        assert torch.equal(ops.ring_matmul_ss(x, y), tref.ring_matmul_ss(x, y)), (b, m, k, n)
-    ones = torch.full((2, 5, 16512), -1, dtype=torch.int64, device="cuda")
-    ones_y = torch.full((2, 16512, 3), -1, dtype=torch.int64, device="cuda")
-    assert torch.equal(ops.ring_matmul_ss(ones, ones_y),
-                       torch.full((2, 5, 3), 16512, dtype=torch.int64, device="cuda"))
+        want = tref.ring_matmul_ss(x, y)
+        for form in forms:
+            assert torch.equal(ops.ring_matmul_ss(x, y, form=form), want), \
+                (b, m, k, n, form)
+            calls += 1
+
+    assert (ops.ss_form(63), ops.ss_form(64)) == ("small", "large")
+    ops.reset_launches()
+    for shape in [(32, 8, 64, 8), (32, 8, 8, 64), (32, 8, 128, 8), (32, 8, 16, 64),
+                  (16, 512, 64, 512), (16, 512, 512, 64), (32, 512, 128, 512),
+                  (32, 512, 1024, 64), (1, 1, 1, 1), (2048, 8, 64, 8)]:
+        check(*shape)
+    both = (None, "large", "small")
+    for shape in [(3, 63, 70, 64), (3, 64, 70, 64), (2, 63, 96, 9), (2, 64, 96, 9),
+                  (3, 33, 70, 31), (2, 65, 97, 67), (2, 130, 100, 66), (4, 7, 33, 70),
+                  (2, 129, 33, 130), (1, 200, 1000, 3), (2, 40, 4096 + 4096 + 320, 9)]:
+        check(*shape, forms=both)
+    # the split's edges; K = 16 544 in more cells than the card holds at
+    # once, where only the 4096 cap cuts K (the fold needs shift s's sum
+    # only mod 2^(64 - 8s), so without the cap a unit would still be exact
+    # up to shift 3's 4 * 255^2 * K < 2^32, K <= 16 512)
+    edges = [(b, m, k, n, form) for k in (4096, 4097, 16512)
+             for b, m, n, form in ((2, 5, 3, "small"), (1, 64, 64, "large"),
+                                   (1, 70, 3, "large"))]
+    for b, m, k, n, form in edges + [(2048, 8, 16544, 8, "small"),
+                                     (136, 64, 16544, 64, "large")]:
+        ones = torch.full((b, m, k), -1, dtype=torch.int64, device="cuda")
+        ones_y = torch.full((b, k, n), -1, dtype=torch.int64, device="cuda")
+        assert torch.equal(ops.ring_matmul_ss(ones, ones_y, form=form),
+                           torch.full((b, m, n), k, dtype=torch.int64, device="cuda")), \
+            (b, m, k, n, form)
+        calls += 1
+        del ones, ones_y
     empty = ops.ring_matmul_ss(ring(2, 3, 0), ring(2, 0, 4))
     assert torch.equal(empty, torch.zeros_like(empty))
+    for b, m, k, n in ((1, 64, 16512, 64), (16, 512, 64, 512), (32, 8, 128, 8),
+                       (2048, 8, 64, 8)):
+        x, y = ring(b, m, k), ring(b, k, n)
+        first = ops.ring_matmul_ss(x, y)
+        assert torch.equal(ops.ring_matmul_ss(x, y), first), (b, m, k, n)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ops.ring_matmul_ss(x, y)
+        captured.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first), (b, m, k, n)
+        assert torch.equal(first, tref.ring_matmul_ss(x, y)), (b, m, k, n)
+        calls += 3
     torch.cuda.synchronize()
-    assert ops.ring_matmul_ss.launches == len(shapes) + 1
+    assert ops.ring_matmul_ss.launches == calls
+    with pytest.raises(ValueError):
+        ops.ring_matmul_ss(ring(1, 2, 3), ring(1, 3, 4), form="wide")
 
 
 @pytest.mark.cuda

@@ -356,17 +356,22 @@ def test_ring_matmul_digits_folds_before_int32_overflows():
         tref.ring_matmul_digits(x_t, w_t, fold=FOLD_PAST)
 
 
-FOLD_PAST_SS = tref.FOLD_K_SS + 64     # past the ss kernel's int32 fold
+SPLIT_K = tref.SPLIT_K_SS
+SPLIT_PAST = SPLIT_K + 64              # past the ss kernel's split
 
 
 @pytest.mark.parametrize("b,m,k,n", [(1, 1, 1, 1), (32, 8, 64, 8), (32, 8, 16, 64),
-                                     (3, 5, 33, 7), (2, 3, 0, 4), (1, 2, FOLD_PAST_SS, 3)])
+                                     (3, 5, 33, 7), (2, 3, 0, 4), (1, 2, SPLIT_PAST, 3),
+                                     (1, 2, SPLIT_K, 3), (1, 3, SPLIT_K + 1, 2),
+                                     (1, 2, 2 * SPLIT_K + 1, 2)])
 def test_ring_matmul_ss_plain_vs_digits_and_ref(b, m, k, n):
     """The secret x secret product's plain version and the kernel's own
     byte-plane arithmetic (``ring_matmul_ss_digits``: 36 u8 plane
-    products, int32 shift sums folded every 4096 of K) against the
-    reference's ``matmul_ring`` and Python ints: all-0x00, 0x80 and 0xFF
-    bytes among the values, K = 0 and K past the fold."""
+    products, int32 shift sums over chunks of at most 4096 of K whose
+    64-bit partials add in the ring) against the reference's
+    ``matmul_ring`` and Python ints: all-0x00, 0x80 and 0xFF bytes among
+    the values, K = 0, and the split's edges: K = 4096 (one chunk), 4097
+    (a chunk of one k after it), 8193 (three chunks) and past 4096."""
     rng = np.random.default_rng(6)
     x_np = rng.integers(0, 2 ** 64, (b, m, k), dtype=np.uint64)
     y_np = rng.integers(0, 2 ** 64, (b, k, n), dtype=np.uint64)
@@ -385,18 +390,18 @@ def test_ring_matmul_ss_plain_vs_digits_and_ref(b, m, k, n):
 
 def test_ring_matmul_ss_digits_folds_before_int32_overflows():
     """Every byte 0xFF on both sides: shift 7's sum grows by 8 * 255^2 per
-    k, so one sum over more than 4128 of K leaves int32.  The fold at 4096
-    keeps the result exact; without it the plain arithmetic raises, as the
-    kernel's accumulators would overflow."""
-    x_np = np.full((1, 2, FOLD_PAST_SS), 2 ** 64 - 1, np.uint64)
-    y_np = np.full((1, FOLD_PAST_SS, 3), 2 ** 64 - 1, np.uint64)
+    k, so one sum over more than 4128 of K leaves int32.  The split into
+    chunks of 4096 keeps the result exact; without it the plain arithmetic
+    raises, as the kernel's accumulators would overflow."""
+    x_np = np.full((1, 2, SPLIT_PAST), 2 ** 64 - 1, np.uint64)
+    y_np = np.full((1, SPLIT_PAST, 3), 2 ** 64 - 1, np.uint64)
     x_t, y_t = tring.from_uint64_np(x_np, "cpu"), tring.from_uint64_np(y_np, "cpu")
     oracle = (x_np[0].astype(object) @ y_np[0].astype(object)) % (1 << 64)
     np.testing.assert_array_equal(
         tring.to_uint64_np(tref.ring_matmul_ss_digits(x_t, y_t))[0],
         oracle.astype(np.uint64))
     with pytest.raises(OverflowError):
-        tref.ring_matmul_ss_digits(x_t, y_t, fold=FOLD_PAST_SS)
+        tref.ring_matmul_ss_digits(x_t, y_t, chunk=SPLIT_PAST)
 
 
 def test_wrappers_take_the_plain_version_on_cpu():

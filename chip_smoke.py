@@ -153,8 +153,35 @@ Phases (any failure raises, and the script exits non-zero):
    only ``beaver_and``) against ``gmw.relu`` at the stem's shape at (64,
    0), (21, 13) and (21, 13) with the cone, bit for bit, both paths'
    exchanges and walls printed; ``BENCH_relu.json``'s ``multigroup``
-   through both (31 swaps against 10 rounds, 696 576 B each, same shares).
+   through both (31 swaps against 10 rounds, 696 576 B each, same shares);
+14. deploy: full-width ResNet-18 as two parties, each holding only its
+   own share rows (local party dimension 1), on one input of batch 4
+   under the exact and reduced plans (one call's triple pool each, made
+   offline and sliced per party; the oracle is the ``SimComm`` generator
+   loop on the card with the same shares, pool and key, its launches equal
+   to one party's as the plan counts them): (a) ``Session.resilient`` with
+   a seeded ``FaultPlan`` (2 drops, 2 corruptions) on ``SimComm``, reduced:
+   shares equal, every event recovered, framed rounds and bytes equal to
+   ``Schedule.framed()``; (b) both parties as threads over localhost
+   ``Session.connect``, exact and reduced: shares equal, each party's
+   socket and ``ResilientComm`` rounds and bytes equal to the framed
+   schedule, every path kernel launched twice one party's count (counters
+   zeroed just before, ``launches_by_path["deploy"]``); each party's wall
+   beside the SimComm call's, unshaped and paced by ``LinkShaper`` to the
+   LAN preset (within ``Schedule.wall_band``); (c) two ``python -m
+   repro_torch.launch.party_host`` processes over a ``write_job``
+   directory (reduced): a clean run, then party 0 killed after round
+   ``DEPLOY_DIE_AFTER`` with journals (exits 42 and 17) and both relaunched
+   (resumed at that round, ``replayed`` equal to it), shares equal each
+   time, the journal bytes written printed; (d) a leader
+   ``InferenceEngine`` with ``EngineLink`` and a ``serve_follower`` thread
+   serve 3 single images from 2 tenants (per-tenant ``StreamingTTP``
+   triples sliced per party), each equal to the SimComm engine's serial
+   run; then each ReLU kernel (the opening forms for party 0 and party 1)
+   and ring_matmul at P = 1 against its plain version at every shape of
+   the deploy path, the stem's timed.
 
+Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -235,7 +262,8 @@ SHAPE_KERNELS = ("beaver_and", "ks_mask", "ks_step", "ks_combine", "ks_level",
 # timed online calls per plan and loop, after one warm-up call; the pool
 # holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
 # each request's served to the generator loop and to the replay in turn
-ONLINE_CALLS = 3
+# (3 until PR 23; 2 from PR 24, whose deploy phase needed the pools' time)
+ONLINE_CALLS = 2
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -2465,45 +2493,735 @@ def seed_oracle_phase():
     return {"stem": cases, "multigroup": multigroup}, seed_launches
 
 
+# ---------------------------------------------------------------------------
+# deploy: two parties, each with only its own share rows (P = 1 kernels)
+# ---------------------------------------------------------------------------
+
+# one input tensor of DEPLOY_BATCH images per call (the plans traced at that
+# batch, one stream); the in-process fault plan's transient events; party
+# 0's kill after DEPLOY_DIE_AFTER live rounds, journals snapshotted every
+# DEPLOY_SNAPSHOT_EVERY rounds; the engine link's requests (id, tenant) in
+# submission order, batched by DEPLOY_LINK_MAX_BATCH so no tenant meets
+# itself in a batch; every wait on a thread or a party process bounded
+DEPLOY_BATCH = 4
+DEPLOY_PLANS = ("exact", "reduced")
+DEPLOY_FAULTS = dict(drops=2, corrupts=2)
+DEPLOY_DIE_AFTER, DEPLOY_SNAPSHOT_EVERY = 20, 10
+DEPLOY_LINK_REQUESTS = ((300, "alice"), (301, "bob"), (302, "alice"))
+DEPLOY_LINK_MAX_BATCH = 2
+DEPLOY_TTP_SEED = 17
+DEPLOY_WAIT_S = 300.0
+# each timed kernel's source and the TPU kernel it replaces
+SOURCES = {k: "src/repro_torch/csrc/gmw_round.cu"
+           for k in ("beaver_and", "ks_mask", "ks_combine", "ks_step")}
+SOURCES.update(pack_ring="src/repro_torch/csrc/bitpack.cu",
+               unpack="src/repro_torch/csrc/bitpack.cu",
+               ring_matmul="src/repro_torch/csrc/ring_matmul.cu")
+REPLACES = {"beaver_and": "src/repro/kernels/gmw_round.py:45",
+            "ks_mask": "src/repro/kernels/gmw_round.py:73",
+            "ks_combine": "src/repro/kernels/gmw_round.py:105",
+            "ks_step": "src/repro/kernels/gmw_round.py:105",
+            "pack_ring": "src/repro/kernels/bitpack.py:44",
+            "unpack": "src/repro/kernels/bitpack.py:60",
+            "ring_matmul": "src/repro/kernels/ring_matmul.py:88"}
+
+
+def deploy_setup():
+    """Full-width ResNet-18 (seeded weights, ``resnet.init(cfg, seed=0)``,
+    as a party host derives them), its exact and reduced plans traced at
+    batch ``DEPLOY_BATCH``, one input's shares, the plaintext logits and one
+    call's triple pool per plan (offline, timed apart)."""
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import beaver, prng
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.models import resnet
+
+    cfg = RESNET18
+    params = resnet.init(cfg, seed=0, device="cuda")
+    exact = resnet.trace(params, cfg, batch=DEPLOY_BATCH)
+    plans = {"exact": exact, "reduced": exact.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (exact.n_groups - 1) + [HBLayer(k=13, m=13)]),
+        exact.group_elements))}
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.rand((DEPLOY_BATCH, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2
+         - 1).cuda()
+    X = MPCTensor.from_plain(prng.PRNGKey(2, "cuda"), x)
+    with torch.no_grad():
+        want = resnet.ResNet(params, cfg)(x)
+    pools, offline = {}, {}
+    for name in DEPLOY_PLANS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools[name] = beaver.gen_plan_triples(prng.PRNGKey(3, "cuda"),
+                                              plans[name].triple_specs())
+        torch.cuda.synchronize()
+        offline[name] = time.perf_counter() - t0
+        print(f"deploy {name}: one call's triple pool in {offline[name]:.3f} s",
+              flush=True)
+    return {"cfg": cfg, "params": params, "plans": plans, "X": X, "want": want,
+            "pools": pools, "offline_s": offline}
+
+
+def _deploy_afn(cfg):
+    from repro_torch.models import resnet
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, cfg, relu_fn=relu_fn)
+    return afn
+
+
+def _deploy_counts():
+    from repro_torch.kernels import ops
+
+    counts = ops.launch_counts()
+    counts["pack_ring_masked"] = ops.pack_ring.masked
+    return counts
+
+
+def deploy_party_launches(plan) -> dict:
+    """One party's launches per kernel in one deploy call, read from the
+    plan (``resnet_shape_launches`` of one stream; ring_matmul's M is one
+    party's rows, twice the main path's per-request M)."""
+    by_shape = resnet_shape_launches(plan, streams=1, batch=2)
+    return {k: sum(v.values()) for k, v in by_shape.items()}
+
+
+def _deploy_sim(name, s):
+    """The single-process oracle: ``SimComm`` on the generator loop on the
+    card, the same shares, pool and key; its rounds and bytes equal to the
+    schedule, its launches to one party's, its reveal checked."""
+    from repro_torch import api
+    from repro_torch.core import beaver, comm as comm_lib, prng
+    from repro_torch.kernels import ops
+
+    plan = s["plans"][name]
+    os.environ["HB_ROUND_LOOP"] = "python"
+    cc = comm_lib.CoalescingComm(comm_lib.SimComm())
+    session = api.Session(key=0, comm=cc, device="cuda",
+                          provider=beaver.TriplePool(s["pools"][name]))
+    model = api.compile(_deploy_afn(s["cfg"]), s["params"], s["cfg"], plan, session)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = model(s["X"], key=prng.PRNGKey(4, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _deploy_counts()
+    errs = []
+    _check_call(name, {"rounds": cc.n_rounds, "bytes": cc.bytes_tx, "outs": [out]},
+                plan.schedule(), s["want"], errs)
+    want = deploy_party_launches(plan)
+    if {k: counts[k] for k in want} != want or \
+            {k for k in want if counts[k]} != PATH_KERNELS[name] or \
+            counts["pack_ring_masked"] != counts["pack_ring"]:
+        raise AssertionError(f"deploy {name} SimComm: launches {counts}, the plan "
+                             f"says {want}")
+    return {"out": out, "wall": wall, "counts": counts, "max_err": errs[0]}
+
+
+def _deploy_faults(s, sim):
+    """(a) The reduced plan on ``SimComm`` under
+    ``Session.resilient(fault_plan=FaultPlan.seeded(...))``: shares equal to
+    the clean run's, every transient event recovered, framed rounds and
+    bytes equal to ``Schedule.framed()``."""
+    from repro_torch import api
+    from repro_torch.core import beaver, faults, prng
+
+    plan = s["plans"]["reduced"]
+    framed = plan.schedule().framed()
+    fault_plan = faults.FaultPlan.seeded(11, framed.n_rounds, **DEPLOY_FAULTS)
+    session = api.Session(key=0, device="cuda",
+                          provider=beaver.TriplePool(s["pools"]["reduced"]))
+    session.resilient(fault_plan=fault_plan)
+    model = api.compile(_deploy_afn(s["cfg"]), s["params"], s["cfg"], plan, session)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(s["X"], key=prng.PRNGKey(4, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rc = session.comm
+    _same_shares("deploy faults", [out], [sim["reduced"]["out"]],
+                 "shares differ from the clean run")
+    if (rc.recovered, rc.retries) != (fault_plan.n_transient,) * 2 or \
+            rc.base.injected != {"drop": 2, "stall": 0, "corrupt": 2, "crash": 0}:
+        raise AssertionError(f"deploy faults: recovered {rc.recovered}, retries "
+                             f"{rc.retries}, injected {rc.base.injected}, plan "
+                             f"{fault_plan.n_transient} transient")
+    if (rc.n_rounds, rc.round_bytes) != (framed.n_rounds, list(framed.round_bytes)):
+        raise AssertionError(f"deploy faults: {rc.n_rounds} rounds / "
+                             f"{rc.bytes_tx} B != framed {framed.n_rounds} / "
+                             f"{framed.bytes_tx}")
+    rec = {"events": [vars(e) for e in fault_plan.events], "wall_s": wall,
+           "recovered": rc.recovered, "resent_bytes": rc.resent_bytes,
+           "faults_detected": dict(rc.faults_detected),
+           "framed_rounds": rc.n_rounds, "framed_bytes": rc.bytes_tx,
+           "sim_wall_s": sim["reduced"]["wall"]}
+    print(f"deploy (a) faults, reduced: {rc.recovered} of "
+          f"{fault_plan.n_transient} transient events recovered "
+          f"({rc.faults_detected}), {rc.n_rounds} framed rounds / {rc.bytes_tx} B "
+          f"== Schedule.framed(); {wall:.3f} s against the clean SimComm call's "
+          f"{sim['reduced']['wall']:.3f} s; shares equal", flush=True)
+    return rec
+
+
+def _run_threads(fns, timeout_s=DEPLOY_WAIT_S):
+    """Run each callable on its own thread; re-raise the first failure,
+    fail on a thread still running after ``timeout_s``."""
+    import threading
+
+    results, errs = {}, {}
+
+    def wrap(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            errs[i] = e
+
+    threads = [threading.Thread(target=wrap, args=(i, f), daemon=True)
+               for i, f in enumerate(fns)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    if errs:
+        raise next(iter(errs.values()))
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a party thread still runs after {timeout_s} s")
+    return [results[i] for i in range(len(fns))]
+
+
+def _two_party_threads(name, s, shaper=None):
+    """(b) Both parties as threads of this process over localhost
+    ``Session.connect``, each with its own rows and its slice of the pool;
+    returns (outputs, sessions, per-party walls, launch counts)."""
+    from repro_torch import api
+    from repro_torch.core import beaver, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.kernels import ops
+    from repro_torch.transport import free_port
+
+    plan, X = s["plans"][name], s["X"]
+    port = free_port()
+
+    def party(i):
+        session = api.Session.connect(
+            i, listen=("127.0.0.1", port) if i == 0 else None,
+            peer=("127.0.0.1", port) if i == 1 else None, key=0,
+            session_id=f"deploy-{name}", plan_digest=plan.digest(),
+            provider=beaver.TriplePool(beaver.slice_party_pool(s["pools"][name], i)),
+            shaper=shaper, timeout_s=DEPLOY_WAIT_S,
+            handshake_timeout_s=DEPLOY_WAIT_S, device="cuda")
+        model = api.compile(_deploy_afn(s["cfg"]), s["params"], s["cfg"], plan,
+                            session)
+        xi = MPCTensor(X.data[i:i + 1], X.frac_bits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(xi, key=prng.PRNGKey(4, "cuda"))
+        torch.cuda.synchronize()
+        return out, session, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = _run_threads([lambda: party(0), lambda: party(1)])
+    torch.cuda.synchronize()
+    counts = _deploy_counts()
+    for _, session, _ in res:
+        session.transport.close()
+    return [r[0] for r in res], [r[1] for r in res], [r[2] for r in res], counts
+
+
+def _check_two_party(what, name, s, sim, outs, sessions, counts=None):
+    """Combined shares equal to the SimComm run's; each party's socket and
+    ``ResilientComm`` rounds and bytes equal to ``Schedule.framed()``; with
+    ``counts``, every path kernel launched twice one party's count."""
+    from repro_torch.core import comm as comm_lib
+    from repro_torch.core.mpc_tensor import MPCTensor
+
+    combined = MPCTensor(torch.cat([o.data for o in outs]), outs[0].frac_bits)
+    _same_shares(f"deploy {what} {name}", [combined], [sim[name]["out"]],
+                 "two-party shares differ from the SimComm run's")
+    framed = s["plans"][name].schedule().framed()
+    for i, session in enumerate(sessions):
+        sock, rc = session.transport, comm_lib.find_resilient(session.comm)
+        for layer, got in (("socket", sock), ("resilient", rc)):
+            if (got.n_rounds, list(got.round_bytes)) != \
+                    (framed.n_rounds, list(framed.round_bytes)):
+                raise AssertionError(
+                    f"deploy {what} {name} party {i} {layer}: {got.n_rounds} "
+                    f"rounds / {got.bytes_tx} B != framed {framed.n_rounds} / "
+                    f"{framed.bytes_tx}")
+    if counts is not None:
+        want = {k: 2 * v for k, v in deploy_party_launches(s["plans"][name]).items()}
+        if {k: counts[k] for k in want} != want or \
+                {k for k in want if counts[k]} != PATH_KERNELS[name]:
+            raise AssertionError(f"deploy {what} {name}: launches {counts}, "
+                                 f"twice one party's is {want}")
+    return framed
+
+
+def _deploy_threads(s, sim):
+    """(b) exact and reduced as two threads, unshaped (kernel launches
+    counted: twice one party's) and shaped to the LAN preset; each
+    party's wall beside the SimComm call's, ``Schedule.latency`` and
+    ``wall_band``."""
+    from repro_torch.api.plan import NETWORKS
+    from repro_torch.transport import LinkShaper
+
+    lan = NETWORKS["lan"]
+    rec, total = {}, {k: 0 for k in SHAPE_KERNELS}
+    for name in DEPLOY_PLANS:
+        outs, sessions, walls, counts = _two_party_threads(name, s)
+        framed = _check_two_party("threads", name, s, sim, outs, sessions, counts)
+        for k in SHAPE_KERNELS:
+            total[k] += counts[k]
+        outs, sessions, lan_walls, _ = _two_party_threads(
+            name, s, LinkShaper.from_preset(lan))
+        _check_two_party("threads (LAN)", name, s, sim, outs, sessions)
+        latency = framed.latency(lan.bandwidth_bps, lan.rtt_s)
+        band = framed.wall_band(lan.bandwidth_bps, lan.rtt_s)
+        if not all(band[0] <= w <= band[1] for w in lan_walls):
+            raise AssertionError(f"deploy {name} LAN walls {lan_walls} outside the "
+                                 f"schedule's band {band}")
+        rec[name] = {"party_wall_s": walls, "lan_party_wall_s": lan_walls,
+                     "sim_wall_s": sim[name]["wall"], "framed_rounds": framed.n_rounds,
+                     "framed_bytes": framed.bytes_tx, "lan_latency_s": latency,
+                     "lan_wall_band_s": band, "launches": counts,
+                     "sim_max_err": sim[name]["max_err"]}
+        print(f"deploy (b) {name}: two party threads {walls[0]:.3f} / "
+              f"{walls[1]:.3f} s unshaped, {lan_walls[0]:.3f} / {lan_walls[1]:.3f} s "
+              f"on the LAN preset (Schedule.latency {latency:.3f} s, wall_band "
+              f"[{band[0]:.3f}, {band[1]:.3f}] s); SimComm {sim[name]['wall']:.3f} s; "
+              f"{framed.n_rounds} framed rounds / {framed.bytes_tx} B a party; "
+              f"shares equal; launches twice one party's", flush=True)
+    return rec, total
+
+
+def _journal_writes(round_bytes, die, every, last):
+    """Bytes of journal payload each party writes in (c) (npz headers
+    aside), from the schedule's round sizes (one party's rows): party 0
+    snapshots at every multiple of ``every`` up to ``die``; party 1 also
+    once more at the crash; the relaunch snapshots at each multiple past
+    ``die`` up to ``last``."""
+    cum = [0]
+    for b in round_bytes:
+        cum.append(cum[-1] + b)
+    first = sum(cum[r] for r in range(every, die + 1, every))
+    again = sum(cum[r] for r in range(die + every, last + 1, every)
+                if r > die)
+    return {"party0": first + again, "party1": first + cum[die] + again}
+
+
+def _deploy_processes(s, sim):
+    """(c) ``python -m repro_torch.launch.party_host`` twice over a job
+    directory written by ``write_job`` (reduced plan): a clean run, then a
+    kill of party 0 after ``DEPLOY_DIE_AFTER`` rounds with journals, and
+    the relaunch resumed from them; outputs equal to (b)'s."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import ring
+    from repro_torch.transport import free_port, job, write_job
+
+    plan = s["plans"]["reduced"]
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="deploy_", dir=base)
+    jobdir = os.path.join(tmp, "job")
+    try:
+        t0 = time.perf_counter()
+        config = next(n for n, c in job.CONFIGS.items() if c == s["cfg"])
+        write_job(jobdir, plan=plan, config=config, params_seed=0, infer_key=4,
+                  session_seed=0, x=s["X"], pool=s["pools"]["reduced"])
+        write_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   OMP_NUM_THREADS="1")
+        framed = plan.schedule().framed()
+
+        def launch(*extra_by_party):
+            port = free_port()
+            procs = []
+            for p in (0, 1):
+                link = (["--listen", f"127.0.0.1:{port}"] if p == 0
+                        else ["--peer", f"127.0.0.1:{port}"])
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.party_host",
+                     "--party", str(p), "--job", jobdir, "--device", "cuda",
+                     "--timeout-s", str(DEPLOY_WAIT_S), *link, *extra_by_party[p]],
+                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            t0 = time.perf_counter()
+            res = []
+            try:
+                for proc in procs:
+                    out, err = proc.communicate(
+                        timeout=max(1.0, DEPLOY_WAIT_S - (time.perf_counter() - t0)))
+                    res.append((proc.returncode, out, err))
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+            return res, time.perf_counter() - t0
+
+        def outputs():
+            rows = []
+            for p in (0, 1):
+                with np.load(os.path.join(jobdir, f"out{p}.npz")) as z:
+                    rows.append(ring.from_limbs(z["lo"], z["hi"], "cuda"))
+            stats = []
+            for p in (0, 1):
+                with open(os.path.join(jobdir, f"stats{p}.json")) as f:
+                    stats.append(json.load(f))
+            return torch.cat(rows), stats
+
+        def ok(res, what):
+            for p, (rc, out, err) in enumerate(res):
+                if rc != 0:
+                    raise AssertionError(f"deploy (c) {what}: party {p} exited "
+                                         f"{rc}\n{out[-2000:]}\n{err[-4000:]}")
+
+        res, clean_s = launch((), ())
+        ok(res, "clean run")
+        got, stats = outputs()
+        if not torch.equal(got, sim["reduced"]["out"].data):
+            raise AssertionError("deploy (c): party processes' shares differ")
+        for st in stats:
+            if (st["rounds"], st["payload_bytes"]) != (framed.n_rounds, framed.bytes_tx):
+                raise AssertionError(f"deploy (c): {st} != framed {framed.n_rounds} "
+                                     f"/ {framed.bytes_tx}")
+        journals = [os.path.join(tmp, f"j{p}") for p in (0, 1)]
+        jargs = [["--journal", journals[p], "--snapshot-every",
+                  str(DEPLOY_SNAPSHOT_EVERY)] for p in (0, 1)]
+        res, kill_s = launch(jargs[0] + ["--die-after-round", str(DEPLOY_DIE_AFTER)],
+                             jargs[1])
+        if (res[0][0], res[1][0]) != (42, 17):
+            raise AssertionError(f"deploy (c): kill run exited {res[0][0]} / "
+                                 f"{res[1][0]}, want 42 / 17\n{res[1][2][-4000:]}")
+        res, resume_s = launch(*jargs)
+        ok(res, "journal resume")
+        got, resumed = outputs()
+        if not torch.equal(got, sim["reduced"]["out"].data):
+            raise AssertionError("deploy (c): resumed shares differ")
+        for st in resumed:
+            if (st["resume_round"], st["replayed"], st["rounds"]) != \
+                    (DEPLOY_DIE_AFTER, DEPLOY_DIE_AFTER,
+                     framed.n_rounds - DEPLOY_DIE_AFTER):
+                raise AssertionError(f"deploy (c) resume: {st}")
+        writes = _journal_writes(plan.schedule().round_bytes, DEPLOY_DIE_AFTER,
+                                 DEPLOY_SNAPSHOT_EVERY, framed.n_rounds)
+        on_disk = [sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(j) for f in fs) for j in journals]
+        rec = {"write_job_s": write_s, "clean_s": clean_s, "kill_s": kill_s,
+               "resume_s": resume_s,
+               "party_wall_s": [st["wall_s"] for st in stats],
+               "resumed_party_wall_s": [st["wall_s"] for st in resumed],
+               "journal_bytes_written": writes, "journal_bytes_on_disk": on_disk,
+               "stats": stats, "resumed_stats": resumed}
+        print(f"deploy (c) party_host processes, reduced: write_job {write_s:.2f} s; "
+              f"clean run {clean_s:.1f} s (each party's call "
+              f"{stats[0]['wall_s']:.3f} / {stats[1]['wall_s']:.3f} s), kill after "
+              f"round {DEPLOY_DIE_AFTER}: exits 42 / 17 in {kill_s:.1f} s, relaunch "
+              f"resumed at round {DEPLOY_DIE_AFTER} ({resumed[0]['replayed']} replayed) "
+              f"in {resume_s:.1f} s; shares equal; journal payload written "
+              f"{writes['party0']} / {writes['party1']} B (snapshot every "
+              f"{DEPLOY_SNAPSHOT_EVERY} rounds), last snapshots on disk "
+              f"{on_disk[0]} / {on_disk[1]} B", flush=True)
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _deploy_link(s):
+    """(d) A leader ``InferenceEngine`` with ``EngineLink`` and a
+    ``serve_follower`` thread serve ``DEPLOY_LINK_REQUESTS`` (single
+    images, two tenants, per-tenant ``StreamingTTP`` triples sliced per
+    party); every request equal to the single-process SimComm engine's
+    serial run (``max_batch=1``) of the same ids; both sides' framed bytes
+    equal."""
+    from repro_torch import api, serve
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+    from repro_torch.transport import (EngineLink, free_port, serve_follower,
+                                       tenant_provider_factory)
+
+    cfg, params = s["cfg"], s["params"]
+    exact = resnet.trace(params, cfg, batch=1)
+    plan = exact.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (exact.n_groups - 1) + [HBLayer(k=13, m=13)]),
+        exact.group_elements))
+    afn = _deploy_afn(cfg)
+    gen = torch.Generator().manual_seed(9)
+    xs = [(torch.rand((1, 3, cfg.in_hw, cfg.in_hw), generator=gen) * 2 - 1).cuda()
+          for _ in DEPLOY_LINK_REQUESTS]
+    os.environ["HB_ROUND_LOOP"] = "python"
+    port = free_port()
+
+    def follower():
+        session = api.Session.connect(
+            1, peer=("127.0.0.1", port), key=0, session_id="deploy-link",
+            plan_digest=plan.digest(), timeout_s=DEPLOY_WAIT_S,
+            handshake_timeout_s=DEPLOY_WAIT_S, device="cuda")
+        model = api.compile(afn, params, cfg, plan, session)
+        try:
+            return serve_follower(session.transport, model,
+                                  provider_factory=tenant_provider_factory(
+                                      DEPLOY_TTP_SEED, party=1, device="cuda")), \
+                list(session.transport.round_bytes)
+        finally:
+            session.transport.close()
+
+    def leader():
+        session = api.Session.connect(
+            0, listen=("127.0.0.1", port), key=0, session_id="deploy-link",
+            plan_digest=plan.digest(), timeout_s=DEPLOY_WAIT_S,
+            handshake_timeout_s=DEPLOY_WAIT_S, device="cuda")
+        engine = serve.InferenceEngine(
+            afn, params, cfg, plan, session,
+            policy=serve.BatchPolicy(max_batch=DEPLOY_LINK_MAX_BATCH),
+            provider_factory=tenant_provider_factory(DEPLOY_TTP_SEED, party=0,
+                                                     device="cuda"))
+        link = EngineLink(engine)
+        try:
+            futs = [engine.submit(t, x, request_id=i)
+                    for (i, t), x in zip(DEPLOY_LINK_REQUESTS, xs)]
+            engine.flush()
+            outs = [f.result(timeout_s=DEPLOY_WAIT_S) for f in futs]
+            return outs, list(engine.reports), list(session.transport.round_bytes)
+        finally:
+            link.shutdown()
+            session.transport.close()
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    (outs, reports, lead_bytes), (served, follow_bytes) = _run_threads([leader, follower])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _deploy_counts()
+    oracle = serve.InferenceEngine(
+        afn, params, cfg, plan, api.Session(key=0, device="cuda"),
+        policy=serve.BatchPolicy(max_batch=1),
+        provider_factory=tenant_provider_factory(DEPLOY_TTP_SEED, device="cuda"))
+    futs = [oracle.submit(t, x, request_id=i)
+            for (i, t), x in zip(DEPLOY_LINK_REQUESTS, xs)]
+    oracle.flush()
+    want = [f.result(timeout_s=DEPLOY_WAIT_S) for f in futs]
+    _same_shares("deploy (d) engine link", outs, want,
+                 "a request differs from its SimComm serial oracle")
+    if served != len(reports) or lead_bytes != follow_bytes:
+        raise AssertionError(f"deploy (d): follower served {served} of "
+                             f"{len(reports)} batches; wire bytes differ")
+    for rep in reports:
+        if (rep.measured_rounds, rep.measured_bytes) != \
+                (rep.predicted_rounds, rep.predicted_bytes):
+            raise AssertionError(f"deploy (d): batch {rep.request_ids} measured "
+                                 f"{rep.measured_rounds} / {rep.measured_bytes}, "
+                                 f"predicted {rep.predicted_rounds} / "
+                                 f"{rep.predicted_bytes}")
+    if {k for k in SHAPE_KERNELS if counts[k]} != PATH_KERNELS["reduced"]:
+        raise AssertionError(f"deploy (d): launched {counts}")
+    rec = {"batches": [list(r.request_ids) for r in reports],
+           "batch_wall_s": [r.wall_s for r in reports],
+           "rounds": [r.measured_rounds for r in reports], "wall_s": wall,
+           "launches": counts}
+    print(f"deploy (d) engine link: {len(DEPLOY_LINK_REQUESTS)} requests from 2 "
+          f"tenants in batches {rec['batches']} ({rec['rounds']} rounds, "
+          f"{', '.join(f'{w:.3f}' for w in rec['batch_wall_s'])} s), {wall:.1f} s "
+          f"in all; every request equal to its SimComm serial oracle", flush=True)
+    return rec
+
+
+def deploy_phase():
+    """Two parties, each holding only its own share rows, on the card: (a)
+    faults in process, (b) two threads over localhost sockets, (c) two
+    ``party_host`` processes and a journal resume, (d) the engine link.
+    Returns the record and the path's launches per kernel (summed over
+    (b)'s unshaped runs)."""
+    t0 = time.perf_counter()
+    s = deploy_setup()
+    setup_s = time.perf_counter() - t0
+    sim = {name: _deploy_sim(name, s) for name in DEPLOY_PLANS}
+    for name in DEPLOY_PLANS:
+        print(f"deploy {name}: SimComm generator loop {sim[name]['wall']:.3f} s, "
+              f"max reveal err {sim[name]['max_err']:.3g}", flush=True)
+    stamps = {"setup_s": setup_s}
+    t0 = time.perf_counter()
+    faults_rec = _deploy_faults(s, sim)
+    stamps["faults_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    threads_rec, launches = _deploy_threads(s, sim)
+    stamps["threads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    procs_rec = _deploy_processes(s, sim)
+    stamps["processes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    link_rec = _deploy_link(s)
+    stamps["link_s"] = time.perf_counter() - t0
+    print(f"deploy phase parts: {json.dumps(stamps)}", flush=True)
+    return ({"offline_s": s["offline_s"], "faults": faults_rec,
+             "threads": threads_rec, "processes": procs_rec, "link": link_rec,
+             "parts_s": stamps}, launches)
+
+
+def deploy_kernel_phase():
+    """Each ReLU kernel and ring_matmul at a local party dimension of 1, at
+    the deploy path's shapes (``resnet_shape_launches`` of its plans, one
+    party), against its plain version: every shape checked, the stem's
+    timed (records on path "deploy"); the opening forms (beaver_and's,
+    ks_combine's and ks_step's reads of the peer's halves with ``sel``) for
+    party 0 (sel all-ones) and party 1 (sel zero)."""
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import resnet
+    from repro_torch.configs import RESNET18
+
+    gen = torch.Generator().manual_seed(24)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    rows = []
+    params = resnet.init(RESNET18, seed=0, device="meta")
+    exact = resnet.trace(params, RESNET18, batch=DEPLOY_BATCH)
+    reduced = exact.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (exact.n_groups - 1) + [HBLayer(k=13, m=13)]),
+        exact.group_elements))
+    shapes = {k: set() for k in SHAPE_KERNELS}
+    for plan in (exact, reduced):
+        for k, by_shape in resnet_shape_launches(plan, streams=1, batch=2).items():
+            shapes[k] |= set(by_shape)
+    stem_words = max(n for _, n in shapes["ks_mask"])
+    checked = 0
+
+    def check(name, shape, fn, plain, bytes_moved, timed, ops_s=0.0):
+        nonlocal checked
+        if timed:
+            timed_record(rows, scratch.zero_, name, SOURCES[name], REPLACES[name],
+                         fn, plain, bytes_moved, ops_s=ops_s, shape=shape,
+                         path="deploy")
+        else:
+            max_abs_err(fn(), plain())
+        checked += 1
+
+    P = 1
+    for w, n_words in sorted(shapes["ks_mask"], reverse=True):
+        timed = n_words == stem_words
+        shifts = sorted(s for ww, nw, s in shapes["ks_step"] if (ww, nw) == (w, n_words))
+        for party in (0, 1):
+            sel = torch.tensor([-1 if party == 0 else 0], dtype=torch.int32,
+                               device="cuda")
+            tag = f"P=1 party {party} w={w} W={n_words}"
+            t = timed and party == 0
+            d, e, a, b, c = (words(gen, P, w, n_words) for _ in range(5))
+            sent, recv = words(gen, P, 2, w, n_words), words(gen, P, 2, w, n_words)
+            halves = (sent[:, 0], sent[:, 1], a, b, c, sel, recv[:, 0], recv[:, 1])
+            check("beaver_and", f"{tag} opening", lambda: ops.beaver_and(*halves),
+                  lambda: ref.beaver_and_open(*halves), (8 * d.numel() + P) * 4, t)
+            g, p = words(gen, P, w, n_words), words(gen, P, w, n_words)
+            a2, b2, c2 = (words(gen, P, 2 * w, n_words) for _ in range(3))
+            if party == 0:
+                check("ks_mask", f"{tag} shift=1", lambda: ops.ks_mask(g, p, a2, b2, 1),
+                      lambda: torch.stack(ref.ks_mask(g, p, a2, b2, 1), dim=1),
+                      40 * P * w * n_words, t)
+            sent2 = words(gen, P, 2, 2 * w, n_words)
+            opened = words(gen, P, 2, 2 * w, n_words)
+            args = (sent2[:, 0], opened[:, 0], sent2[:, 1], opened[:, 1], a2, b2, c2,
+                    sel, g)
+            check("ks_combine", tag, lambda: ops.ks_combine(*args),
+                  lambda: ref.ks_combine(*args), 68 * P * w * n_words + 4 * P, t)
+            a3, b3 = words(gen, P, 2 * w, n_words), words(gen, P, 2 * w, n_words)
+            for shift in shifts:
+                g3, g4 = g.clone(), g.clone()
+                check("ks_step", f"{tag} shift={shift}",
+                      lambda: ops.ks_step(sent2, opened[:, 0], opened[:, 1], a2, b2,
+                                          c2, sel, g3, a3, b3, shift),
+                      lambda: ref.ks_step(sent2, opened[:, 0], opened[:, 1], a2, b2,
+                                          c2, sel, g4, a3, b3, shift),
+                      96 * P * w * n_words + 4 * P, t and shift == shifts[0])
+    for k, m, e in sorted(shapes["pack_ring"], reverse=True):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
+                          dtype=torch.int64).cuda()
+        r = words(gen, P, k - m, (e + 31) // 32)
+        check("pack_ring", f"P=1 E={e} k={k} m={m} masked",
+              lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
+              8 * P * e + 8 * r.numel(), (e + 31) // 32 == stem_words)
+    for n in sorted(shapes["unpack"], reverse=True):
+        packed = words(gen, P, 1, (n + 31) // 32)
+        check("unpack", f"R=1 w=1 W={packed.shape[-1]} n={n}",
+              lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
+              4 * packed.numel() + 4 * P * n, packed.shape[-1] == stem_words)
+    stem_m = max(m for m, _, _ in shapes["ring_matmul"])
+    for m, k, n in sorted(shapes["ring_matmul"], reverse=True):
+        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
+                          dtype=torch.int64).cuda()
+        wt = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
+                           dtype=torch.int64).to(torch.int32).cuda()
+        bytes_s, ops_s = ring_matmul_bound_s(m, k, n)
+        check("ring_matmul", f"M={m} K={k} N={n} (one party)",
+              lambda: ops.ring_matmul(x, wt), lambda: ref.ring_matmul(x, wt),
+              bytes_s * HBM_BYTES_PER_S, m == stem_m and k == 576, ops_s=ops_s)
+    print(f"deploy kernels: {checked} P = 1 launches at the deploy path's shapes "
+          f"equal their plain versions, {len(rows)} timed", flush=True)
+    return rows
+
+
+PHASE_S: dict = {}
+
+
+def _phase(name, fn, *args):
+    """Run one phase; its seconds go to ``PHASE_S`` and the output."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from repro_torch.kernels import build    # the port must be beside us
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"build: {build.build_all():.1f} s", flush=True)
+    print(f"build: {_phase('build', build.build_all):.1f} s", flush=True)
 
-    lm = lm_setup()
-    rows, extra = kernel_phase(lm)
+    lm = _phase("lm-setup", lm_setup)
+    rows, extra = _phase("kernels", kernel_phase, lm)
     sass = sass_census()
-    runs, launches = main_path_phase()
+    runs, launches = _phase("main-path", main_path_phase)
     per_call = sum(c for *_, c in RING_MATMUL_SHAPES)
     if set(launches["ring_matmul"].values()) != {per_call}:
         raise AssertionError(f"ring_matmul launched {launches['ring_matmul']} "
                              f"times, its shape table counts {per_call}")
-    lm_runs, lm_path_launches = lm_path_phase(lm)
-    lm_relu = lm_relu_phase(lm)
-    ragged, ragged_launches = ragged_merge_phase()
+    lm_runs, lm_path_launches = _phase("lm-path", lm_path_phase, lm)
+    lm_relu = _phase("lm-relu", lm_relu_phase, lm)
+    ragged, ragged_launches = _phase("ragged-merge", ragged_merge_phase)
     for k, by_path in list(ragged_launches.items()) + list(lm_path_launches.items()):
         launches.setdefault(k, {}).update(by_path)
-    merge = merge_phase(torch.empty(64 * 2 ** 20, dtype=torch.int32,
-                                    device="cuda").zero_)
-    breakdown = stem_breakdown_phase()
-    search, search_rows, search_launches = search_phase()
+    merge = _phase("merge", merge_phase, torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                                     device="cuda").zero_)
+    breakdown = _phase("stem-breakdown", stem_breakdown_phase)
+    search, search_rows, search_launches = _phase("search", search_phase)
     for k, v in search_launches.items():
         launches.setdefault(k, {})["search"] = v
-    served, serve_rows, serve_launches = serve_phase()
-    served_lm, serve_lm_launches = serve_lm_phase(lm)
-    front, front_launches = frontend_phase()
-    seed_oracle, seed_launches = seed_oracle_phase()
+    served, serve_rows, serve_launches = _phase("serve", serve_phase)
+    served_lm, serve_lm_launches = _phase("serve-lm", serve_lm_phase, lm)
+    front, front_launches = _phase("frontend", frontend_phase)
+    seed_oracle, seed_launches = _phase("seed-oracle", seed_oracle_phase)
+    deploy, deploy_launches = _phase("deploy", deploy_phase)
+    deploy_rows = _phase("deploy-kernels", deploy_kernel_phase)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
-                         ("frontend", front_launches), ("seed-oracle", seed_launches)):
+                         ("frontend", front_launches), ("seed-oracle", seed_launches),
+                         ("deploy", deploy_launches)):
         for k in SHAPE_KERNELS:
             launches.setdefault(k, {})[path] = counts.get(k, 0)
-    extra += serve_rows
+    extra += serve_rows + deploy_rows
     search["per_call_sums"]["ring_matmul"] = next(
         r["per_call_sums"] for r in rows + extra
         if r["name"] == "ring_matmul" and "per_call_sums" in r)
@@ -2511,6 +3229,8 @@ def main() -> None:
     for row in rows + extra:     # launches: the row's path; all paths beside
         row["launches"] = launches[row["name"]][row.pop("path")]
         row["launches_by_path"] = launches[row["name"]]
+    PHASE_S["total"] = time.perf_counter() - t_start
+    print(f"phase seconds: {json.dumps(PHASE_S)}", flush=True)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2524,7 +3244,9 @@ def main() -> None:
                    "merge": merge,
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
-                   "seed_oracle": seed_oracle}, f, indent=1)
+                   "seed_oracle": seed_oracle, "deploy": deploy,
+                   "phase_s": PHASE_S}, f, indent=1)
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
 

@@ -20,7 +20,13 @@ Same layout as the reference, so each module names its twin:
             -b, the STE finetune (over ``data/`` ImagePipeline and
             ``train/`` SGD)
   serve/    request-level serving: ``InferenceEngine`` (admission,
-            ``BatchPolicy``, tenants, the pump) and the HTTP ``Frontend``
+            ``BatchPolicy``, tenants, the pump), the HTTP ``Frontend`` and
+            the leader's deployment CLI
+  transport/ the two-process deployment: ``SocketComm`` (the reference's
+            HBTP over TCP, a local party dimension of 1), job bundles, the
+            engine link; ``launch/party_host`` runs one party; faults,
+            ``ResilientComm`` and round journals in ``core/``, persisted by
+            ``checkpoint/``
   runtime/  the round-loop choice and the straggler watchdog
 
 Entry points run on the GPU unless given ``device="cpu"``: ``device=None``

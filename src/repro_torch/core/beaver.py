@@ -190,6 +190,73 @@ def gen_plan_triples(key: torch.Tensor, specs: Sequence[Tuple[int, int]],
             for k, (n, w) in zip(keys, specs)]
 
 
+def slice_party_bundle(bundle: Optional[ReluTriples],
+                       party: int) -> Optional[ReluTriples]:
+    """One party's rows of a full 2-party ``ReluTriples`` bundle.
+
+    The party dimension leads every member but the dense ``bin_levels``
+    stack, (L, P, 2w, W), where it is dim 1; the slice keeps the dimension
+    with size 1, the local layout of a per-process transport backend
+    (``transport.SocketComm``).  Generate the full bundle from a key both
+    parties share, slice to your own index, and the two processes hold a
+    consistent triple.
+    """
+    if bundle is None:
+        return None
+
+    def at(party_dim: int, triple):
+        idx = (slice(None),) * party_dim + (slice(party, party + 1),)
+        return type(triple)(*(getattr(triple, f)[idx] for f in ("a", "b", "c")))
+
+    if isinstance(bundle.bin_levels, BinTriple):     # dense: (L, P, 2w, W)
+        levels = at(1, bundle.bin_levels)
+    else:                                            # cone: ragged per level
+        levels = tuple(at(0, t) for t in bundle.bin_levels)
+    return ReluTriples(at(0, bundle.bin_init), levels,
+                       at(0, bundle.b2a), at(0, bundle.mult))
+
+
+def slice_party_pool(pool: Sequence[Optional[ReluTriples]],
+                     party: int) -> List[Optional[ReluTriples]]:
+    """Party-local slice of an offline pool (one bundle per ReLU call)."""
+    return [slice_party_bundle(b, party) for b in pool]
+
+
+class PartySlicedTTP:
+    """One party's view of a *materialising* triple provider.
+
+    Both parties construct the same base provider from a shared TTP key
+    (e.g. ``StreamingTTP``); each wraps it with its own party index and
+    keeps only its rows of every generated bundle, so the two processes'
+    slices are consistent triples by construction.  The base must
+    materialise bundles: an inline provider returning None would make
+    each process derive "triples" from its local 1-row layout, which is
+    not a valid 2-party sharing, so that is rejected loudly.
+    """
+
+    def __init__(self, base, party: int):
+        self.base = base
+        self.party = int(party)
+
+    def relu_triples(self, n_elements: int, width: int,
+                     cone: bool = False) -> Optional[ReluTriples]:
+        if width == 0 or n_elements == 0:
+            return None
+        full = self.base.relu_triples(n_elements, width, cone=cone)
+        if full is None:
+            raise TypeError(
+                "PartySlicedTTP needs a materialising base provider "
+                "(StreamingTTP / TriplePool); an inline provider cannot "
+                "supply one party's slice of a shared triple")
+        return slice_party_bundle(full, self.party)
+
+    def checkpoint(self):
+        return self.base.checkpoint()
+
+    def rollback(self, token) -> None:
+        self.base.rollback(token)
+
+
 @runtime_checkable
 class TripleProvider(Protocol):
     """Where a Session's protocol calls get their Beaver triples.

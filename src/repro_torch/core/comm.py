@@ -1,6 +1,7 @@
-"""Party communicator: simulation backend plus counting and coalescing
-wrappers (twins of ``SimComm``, ``CountingComm`` and ``CoalescingComm`` in
-the reference's ``core/comm.py``).
+"""Party communicator: simulation backend plus counting, coalescing and
+resilient wrappers (twins of ``SimComm``, ``CountingComm``,
+``CoalescingComm`` and ``ResilientComm`` in the reference's
+``core/comm.py``).
 
 Protocol code works on tensors with a leading party dimension.  A payload
 is one tensor, of one of two dtypes:
@@ -12,12 +13,23 @@ is one tensor, of one of two dtypes:
 
 So ``CoalescingComm.flush`` builds the same (P, total_words) buffer as the
 reference, word for word, and the byte counters agree.
+
+``ResilientComm`` frames that buffer as the reference does (a round
+sequence column, then a per-party checksum column), verifies every
+received frame, and heals drops, stalls and corruption by idempotent
+re-send with bounded exponential backoff; only an exhausted retry budget
+raises the typed ``errors`` failure.  Framing and verification run on the
+buffer's device.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from typing import Dict, List, Optional
 
 import torch
+
+from .. import errors
+from .schedule import FRAME_WORDS
 
 
 def payload_bytes(t: torch.Tensor) -> int:
@@ -164,6 +176,173 @@ class CoalescingComm:
         return self.base.party_slice(full)
 
 
+# ---------------------------------------------------------------------------
+# Resilient transport: framing + detection + retry/backoff
+# ---------------------------------------------------------------------------
+
+_CKSUM_MULT = 2654435761                     # Knuth's multiplicative hash
+_SEQ_MIX = 0x9E3779B1
+_U32_MASK = 0xFFFFFFFF
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as their int32 bit patterns."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _seq_word(seq: int) -> int:
+    """The sequence column's int32 value: ``seq`` mod 2^32, as a bit pattern."""
+    v = seq & _U32_MASK
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def frame_checksum(words: torch.Tensor, seq: int) -> torch.Tensor:
+    """Per-party checksum of a (P, n) int32 wire buffer under round seq,
+    as a (P,) int32 bit pattern, equal bit for bit to the reference's
+    numpy ``frame_checksum`` (computed here in int64 masked to 32 bits, on
+    the buffer's device).
+
+    Position-weighted multiplicative mix: a flip of any single word (or a
+    swap of two words) changes the sum by a nonzero odd multiple mod 2^32,
+    so single-word corruption is always detected; ``seq`` is folded in so
+    a stale round's frame can never verify against the current round.
+    """
+    w = words.to(torch.int64) & _U32_MASK
+    idx = (torch.arange(w.shape[-1], dtype=torch.int64, device=w.device)
+           * _CKSUM_MULT) & _U32_MASK
+    acc = (((w ^ idx) * _CKSUM_MULT) & _U32_MASK).sum(dim=-1) & _U32_MASK
+    return _as_int32(acc ^ ((int(seq) * _SEQ_MIX) & _U32_MASK))
+
+
+class ResilientComm:
+    """Framed, self-healing transport wrapper over any eager base backend.
+
+    Every ``swap`` flattens its payload into one (P, n) int32 word buffer
+    (``payload_words``) and appends ``FRAME_WORDS`` framing words, the
+    round sequence number and a per-party checksum, before exchanging.  On
+    receipt the frame is verified: a sequence mismatch means the parties
+    desynced (a duplicated or stale delivery), a checksum mismatch means
+    payload corruption; either triggers an idempotent re-send of the SAME
+    framed buffer.  An attempt that raises a transient comm fault (injected
+    by ``core.faults.FaultInjectingComm``, a socket timeout under
+    ``transport.SocketComm``) or takes longer than ``timeout_s`` is retried
+    too, with bounded exponential backoff between attempts.  Only when the
+    per-round retry budget is exhausted does the typed error
+    (``errors.CommTimeout`` / ``PayloadCorrupted`` / ``PartyCrashed``)
+    propagate.
+
+    Composition: ``CoalescingComm(ResilientComm(base))``: coalescing above,
+    so the whole fused round is ONE framed exchange and re-sends never add
+    protocol rounds.  ``Schedule.framed()`` prices the framing, so
+    ``round_bytes`` here equal the framed schedule exactly; failed
+    attempts accumulate in ``resent_bytes``, never in ``round_bytes``.
+
+    Counters: ``n_rounds``/``round_bytes``/``bytes_tx`` (successful framed
+    rounds), ``retries`` (failed attempts), ``recovered`` (rounds that
+    needed at least one retry), ``resent_bytes``, and ``faults_detected``
+    by kind ("timeout", "corrupt", "crash").
+    """
+
+    def __init__(self, base=None, *, max_retries: int = 3,
+                 timeout_s: Optional[float] = None,
+                 backoff_s: float = 0.0, backoff_cap_s: float = 1.0):
+        self.base = base if base is not None else SimComm()
+        self.n_parties = self.base.n_parties
+        self.max_retries = max_retries
+        self.timeout_s = timeout_s
+        self.backoff_s = backoff_s
+        self.backoff_cap_s = backoff_cap_s
+        self.reset()
+
+    def reset(self) -> None:
+        self._seq = 0
+        self.n_rounds = 0
+        self.round_bytes: List[int] = []
+        self.retries = 0
+        self.recovered = 0
+        self.resent_bytes = 0
+        self.faults_detected: Dict[str, int] = {
+            "timeout": 0, "corrupt": 0, "crash": 0}
+
+    @property
+    def bytes_tx(self) -> int:
+        return sum(self.round_bytes)
+
+    # -- framing ---------------------------------------------------------------
+    def _frame(self, buf: torch.Tensor) -> torch.Tensor:
+        framed = torch.empty((buf.shape[0], buf.shape[1] + FRAME_WORDS),
+                             dtype=torch.int32, device=buf.device)
+        framed[:, :-FRAME_WORDS] = buf
+        framed[:, -2] = _seq_word(self._seq)
+        framed[:, -1] = frame_checksum(buf, self._seq)
+        return framed
+
+    def _verify(self, opened: torch.Tensor) -> torch.Tensor:
+        """Checks the received frame; raises typed errors on mismatch and
+        returns the received payload words (a view) on success."""
+        payload, seq_col, cksum_col = (opened[:, :-FRAME_WORDS], opened[:, -2],
+                                       opened[:, -1])
+        if not bool((seq_col == _seq_word(self._seq)).all()):
+            got = sorted(set(int(s) & _U32_MASK for s in seq_col.tolist()))
+            raise errors.PayloadCorrupted(
+                f"round desync: expected seq {self._seq}, received {got}")
+        ok = cksum_col == frame_checksum(payload, self._seq)
+        if not bool(ok.all()):
+            bad = [p for p, good in enumerate(ok.tolist()) if not good]
+            raise errors.PayloadCorrupted(
+                f"checksum mismatch on round {self._seq} "
+                f"(party rows {bad}): payload corrupted in flight")
+        return payload
+
+    # -- the exchange ----------------------------------------------------------
+    def swap(self, x: torch.Tensor) -> torch.Tensor:
+        words = payload_words(x)
+        buf = torch.cat(words, dim=1) if len(words) > 1 else words[0]
+        framed = self._frame(buf)
+        frame_cost = payload_bytes(framed)
+        attempt = 0
+        while True:
+            t0 = time.monotonic()
+            try:
+                opened = self.base.swap(framed)
+                if (self.timeout_s is not None
+                        and time.monotonic() - t0 > self.timeout_s):
+                    raise errors.CommTimeout(
+                        f"round {self._seq}: exchange stalled past "
+                        f"{self.timeout_s}s")
+                payload = self._verify(opened)
+                break
+            except errors.CommError as e:
+                kind = ("crash" if isinstance(e, errors.PartyCrashed) else
+                        "corrupt" if isinstance(e, errors.PayloadCorrupted)
+                        else "timeout")
+                self.faults_detected[kind] += 1
+                self.resent_bytes += frame_cost
+                # A crashed peer cannot be healed by a re-send: recovery
+                # is restart + journal resume, owned by the layer above.
+                if isinstance(e, errors.PartyCrashed):
+                    raise
+                if attempt >= self.max_retries:
+                    raise
+                self.retries += 1
+                attempt += 1
+                if self.backoff_s > 0:
+                    time.sleep(min(self.backoff_s * 2 ** (attempt - 1),
+                                   self.backoff_cap_s))
+        self.n_rounds += 1
+        self.round_bytes.append(frame_cost)
+        if attempt:
+            self.recovered += 1
+        self._seq += 1
+        return words_payload(payload, x)
+
+    def party_is(self, p: int, template: torch.Tensor) -> torch.Tensor:
+        return self.base.party_is(p, template)
+
+    def party_slice(self, full: torch.Tensor) -> torch.Tensor:
+        return self.base.party_slice(full)
+
+
 def find_comm(comm, cls):
     """First wrapper of type ``cls`` in a comm stack (walks the ``.base``
     chain).  Lets callers reach a specific layer's counters without
@@ -177,10 +356,7 @@ def find_comm(comm, cls):
     return None
 
 
-def find_resilient(comm) -> Optional[object]:
+def find_resilient(comm) -> Optional["ResilientComm"]:
     """The ``ResilientComm`` inside a wrapper stack, if any (the serving
-    engine reads its recovery counters per batch).  The port has no
-    ``ResilientComm`` yet (ROADMAP queue 1, item 6), so no stack holds one
-    and this returns None; once it is ported this looks it up with
-    ``find_comm``, as the reference does."""
-    return None
+    engine reads its recovery counters per batch)."""
+    return find_comm(comm, ResilientComm)

@@ -52,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -119,6 +120,16 @@ def _party_rows(name: str, t: torch.Tensor) -> int:
     return t.stride(0)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(kernel, attr: str = "launches") -> None:
+    """One launch of ``kernel`` counted (under a lock: the two parties of a
+    deployment may run as threads of one process)."""
+    with _COUNT_LOCK:
+        setattr(kernel, attr, getattr(kernel, attr) + 1)
+
+
 def _launch(name: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rc = _fn(name)(*args, stream)
@@ -159,7 +170,7 @@ def beaver_and(d, e, a, b, c, sel, d_other=None, e_other=None):
         _launch("hb_beaver_and", *rows[0], *rows[1], *peer[0], *peer[1],
                 a.data_ptr(), b.data_ptr(), c.data_ptr(), sel.data_ptr(),
                 out.data_ptr(), n_parties, per_party)
-        beaver_and.launches += 1
+        _count(beaver_and)
     return out
 
 
@@ -181,7 +192,7 @@ def ks_mask(g, p, a, b, shift: int):
     if g.numel():
         _launch("hb_ks_mask", g.data_ptr(), p.data_ptr(), a.data_ptr(),
                 b.data_ptr(), send.data_ptr(), n_parties, w, words, int(shift))
-        ks_mask.launches += 1
+        _count(ks_mask)
     return send
 
 
@@ -220,7 +231,7 @@ def ks_combine(d, d_other, e, e_other, a, b, c, sel, g, need_p: bool = True):
                 _party_rows(name, e_other), a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), sel.data_ptr(), g.data_ptr(), g_out.data_ptr(),
                 None if p_out is None else p_out.data_ptr(), n_parties, w, words)
-        ks_combine.launches += 1
+        _count(ks_combine)
     return g_out, p_out
 
 
@@ -255,7 +266,7 @@ def ks_step(sent, d_other, e_other, a, b, c, sel, g, a_next, b_next,
                 c.data_ptr(), sel.data_ptr(), g.data_ptr(), a_next.data_ptr(),
                 b_next.data_ptr(), send.data_ptr(), n_parties, w, words,
                 int(shift))
-        ks_step.launches += 1
+        _count(ks_step)
     return g, send
 
 
@@ -285,7 +296,7 @@ def ks_level(g, p, z, first: int, step: int):
         _launch("hb_ks_level", g.data_ptr(), p.data_ptr(), z.data_ptr(),
                 _party_rows(name, z), n_parties, planes, int(first), int(step),
                 n, n_words)
-        ks_level.launches += 1
+        _count(ks_level)
     return g, p
 
 
@@ -367,7 +378,7 @@ def cone_step(sent, d_other, e_other, a, b, c, sel, g, p, level=None,
                 b_next.data_ptr() if nxt is not None else None, out.data_ptr(),
                 n_parties, w, n_words, rows, first, step, n_next, first_next,
                 step_next, shift_next)
-        cone_step.launches += 1
+        _count(cone_step)
     return out
 
 
@@ -390,7 +401,7 @@ def pack(v: torch.Tensor, w: int) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.int32, device=v.device)
     if out.numel():
         _launch("hb_pack", v.data_ptr(), math.prod(lead), n, out.data_ptr(), w)
-        pack.launches += 1
+        _count(pack)
     return out
 
 
@@ -421,8 +432,9 @@ def pack_ring(x: torch.Tensor, k: int, m: int,
     if out.numel():
         _launch("hb_pack_ring", x.data_ptr(), math.prod(lead), n,
                 out.data_ptr(), k, m, None if mask is None else mask.data_ptr())
-        pack_ring.launches += 1
-        pack_ring.masked += mask is not None
+        _count(pack_ring)
+        if mask is not None:
+            _count(pack_ring, "masked")
     return out
 
 
@@ -442,7 +454,7 @@ def unpack(words: torch.Tensor, n: int) -> torch.Tensor:
     if out.numel():
         _launch("hb_unpack", words.data_ptr(), math.prod(lead), w, n_words, n,
                 out.data_ptr())
-        unpack.launches += 1
+        _count(unpack)
     return out
 
 
@@ -468,7 +480,7 @@ def ring_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             return out.zero_()
         _launch("hb_ring_matmul", x.data_ptr(), w.data_ptr(), out.data_ptr(),
                 m, k, n)
-        ring_matmul.launches += 1
+        _count(ring_matmul)
     return out
 
 
@@ -513,7 +525,7 @@ def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor,
             return out.zero_()
         _launch("hb_ring_matmul_ss", x.data_ptr(), y.data_ptr(), out.data_ptr(),
                 b, m, k, n, SS_FORMS.index(form))
-        ring_matmul_ss.launches += 1
+        _count(ring_matmul_ss)
     return out
 
 

@@ -16,19 +16,39 @@ Routes (all JSON):
   ``submit`` (the frontend process is the client gateway) and the
   revealed output returned.
 - ``GET /healthz`` liveness: queue depth, pump state, last pump error.
-- ``GET /stats``   ``engine.stats()`` plus the frontend's counters.
+- ``GET /stats``   ``engine.stats()`` plus the frontend's counters and,
+  when the engine session came from ``Session.connect``, the socket
+  transport's wire counters (``transport``: rounds, payload/header bytes,
+  dup drops, resilience retries).
 
 The output is revealed and copied to the host under the engine's
 ``device_lock``, so a worker thread never touches the device while the
-pump captures a new stream signature's CUDA graph.  The reference's
-deployment CLI (``build_parser``, ``build_engine``, ``main``: a leader
-party over a socket transport) waits for the transport's port (ROADMAP
-queue 1, item 7).
+pump captures a new stream signature's CUDA graph.
+
+Deployment (one process per party)::
+
+    # terminal 1: the follower party serves protocol batches
+    python -m repro_torch.launch.party_host --party 1 --job jobdir \
+        --listen 127.0.0.1:9000 --follow
+
+    # terminal 2: the leader party: engine + HTTP frontend
+    python -m repro_torch.serve.frontend --job jobdir \
+        --peer 127.0.0.1:9000 --http 127.0.0.1:9001
+
+    curl -s -X POST http://127.0.0.1:9001/infer \
+        -d '{"tenant": "alice", "x": [[...]]}'
+
+The leader owns the engine (admission, batching policy, shedding,
+metering) and holds both share rows of each input exactly as any client
+would; the follower only ever sees its own rows
+(``transport.engine_link``).  Both run on ``--device`` (default ``cuda``).
 """
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
+import sys
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -36,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from .. import errors
+from ..core import comm as comm_lib
 
 _MAX_BODY = 64 << 20          # 64 MiB request cap (a batch of images is MBs)
 
@@ -102,8 +123,19 @@ class Frontend:
         stats["pending"] = self.engine.pending
         stats["frontend_requests"] = self.requests_served
         stats["uptime_s"] = time.monotonic() - self.started_s
-        # the socket transport's wire counters ("transport") join once its
-        # SocketComm is ported (ROADMAP queue 1, item 7)
+        from ..transport import SocketComm
+        sock = comm_lib.find_comm(self.engine.session.comm, SocketComm)
+        if sock is not None:
+            resilient = comm_lib.find_resilient(self.engine.session.comm)
+            stats["transport"] = {
+                "party": sock.party,
+                "rounds": sock.n_swaps,
+                "payload_bytes": sock.bytes_tx,
+                "header_bytes": sock.header_bytes,
+                "dup_dropped": sock.dup_dropped,
+                "retries": resilient.retries if resilient else 0,
+                "recovered": resilient.recovered if resilient else 0,
+            }
         return stats
 
     def _healthz(self) -> Dict:
@@ -224,3 +256,95 @@ class Frontend:
             self._thread.join(5.0)
             self._thread = None
         self.engine.stop_pump()
+
+
+# -- deployment entry point: the leader party process -------------------------
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="frontend",
+        description="leader party: inference engine + HTTP frontend",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    ap.add_argument("--job", required=True)
+    ap.add_argument("--listen", default=None,
+                    help="host:port to accept the follower party on")
+    ap.add_argument("--peer", default=None,
+                    help="host:port of a hosting follower to dial")
+    ap.add_argument("--http", default="127.0.0.1:9001",
+                    help="host:port for the HTTP frontend")
+    ap.add_argument("--party", type=int, default=0, choices=(0, 1))
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=50.0)
+    ap.add_argument("--merge-identical", action="store_true")
+    ap.add_argument("--rtt-ms", type=float, default=0.0)
+    ap.add_argument("--mbps", type=float, default=0.0)
+    ap.add_argument("--timeout-s", type=float, default=30.0)
+    ap.add_argument("--handshake-timeout-s", type=float, default=120.0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for shares, triples and kernels")
+    return ap
+
+
+def build_engine(args, job):
+    """The leader-side engine over a connected two-party session."""
+    from .. import api, transport
+    from ..device import resolve as resolve_device
+    from ..models import resnet
+    from ..transport.socket import parse_address
+    from .engine import BatchPolicy, InferenceEngine
+
+    device = resolve_device(args.device)
+    cfg, plan = job["cfg"], job["plan"]
+    params = resnet.init(cfg, seed=job["params_seed"], device=device)
+    shaper = None
+    if args.rtt_ms > 0 or args.mbps > 0:
+        shaper = transport.LinkShaper(
+            rtt_s=args.rtt_ms / 1e3,
+            bandwidth_bps=(args.mbps * 1e6 if args.mbps > 0
+                           else float("inf")))
+    session = api.Session.connect(
+        args.party,
+        listen=parse_address(args.listen) if args.listen else None,
+        peer=parse_address(args.peer) if args.peer else None,
+        key=job["session_seed"], session_id=str(job["session_seed"]),
+        plan_digest=plan.digest(), shaper=shaper, timeout_s=args.timeout_s,
+        handshake_timeout_s=args.handshake_timeout_s, device=device)
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, cfg, relu_fn=relu_fn)
+
+    engine = InferenceEngine(
+        afn, params, cfg, plan, session,
+        policy=BatchPolicy(max_batch=args.max_batch,
+                           max_wait_s=args.max_wait_ms / 1e3,
+                           merge_identical=args.merge_identical),
+        provider_factory=transport.tenant_provider_factory(
+            job["ttp_seed"], party=args.party, device=device))
+    link = transport.EngineLink(engine)
+    return engine, link
+
+
+def main(argv=None) -> int:
+    from .. import transport
+    from ..transport.socket import parse_address
+
+    args = build_parser().parse_args(argv)
+    if (args.listen is None) == (args.peer is None):
+        print("pass exactly one of --listen / --peer", file=sys.stderr)
+        return 2
+    job = transport.load_job(args.job)
+    engine, link = build_engine(args, job)
+    frontend = Frontend(engine)
+    host, port = parse_address(args.http, default_port=9001)
+    try:
+        frontend.run_forever(host, port)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        link.shutdown()
+        frontend.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""The port's checkpoint store against the reference's.
+
+Mirrors the reference's ``tests/test_fault_tolerance.py`` cases of the
+store (``checkpoint_roundtrip``, ``uncommitted_checkpoint_ignored``,
+``async_checkpointer``; the training cases wait for the port's training
+loop).  The on-disk format differs in the manifest only (JSON, not
+msgpack), so the reference's leaves and paths are compared too: the same
+tree saved by both stores gives the same ``arrays.npz`` keys and arrays
+and the same leaf paths, shapes and dtypes."""
+import json
+
+import jax.numpy as jnp
+import msgpack
+import numpy as np
+import torch
+
+from repro.checkpoint import store as jstore
+from repro_torch.checkpoint import store
+
+
+def _tree():
+    return {"b": {"c": torch.ones((5,), dtype=torch.int32)},
+            "a": torch.arange(12.0).reshape(3, 4),
+            "l": [np.arange(3, dtype=np.uint32), None, torch.tensor(7)]}
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    tree = _tree()
+    store.save(str(tmp_path), 7, tree, extra={"note": "x"})
+    assert store.latest_step(str(tmp_path)) == 7
+    out, manifest = store.restore(str(tmp_path), tree)
+    assert torch.equal(out["a"], tree["a"]) and out["a"].device == tree["a"].device
+    assert torch.equal(out["b"]["c"], tree["b"]["c"])
+    np.testing.assert_array_equal(out["l"][0], tree["l"][0])
+    assert out["l"][1] is None and int(out["l"][2]) == 7
+    assert list(out) == list(tree)                   # the caller's key order
+    assert manifest["extra"]["note"] == "x"
+    assert store.load_manifest(str(tmp_path)) == manifest
+
+    # the reference's store, same tree: same leaves, paths, shapes, dtypes
+    jtree = {"b": {"c": jnp.ones((5,), jnp.int32)},
+             "a": jnp.arange(12.0).reshape(3, 4),
+             "l": [jnp.arange(3, dtype=jnp.uint32), None, jnp.asarray(7)]}
+    jstore.save(str(tmp_path / "ref"), 7, jtree, extra={"note": "x"})
+    jdir, tdir = tmp_path / "ref" / "step_00000007", tmp_path / "step_00000007"
+    jman = msgpack.unpackb((jdir / "manifest.msgpack").read_bytes())
+    tman = json.loads((tdir / "manifest.json").read_text())
+    for k in ("step", "paths", "shapes", "extra"):
+        assert jman[k] == tman[k], k
+    assert [np.dtype(d) for d in jman["dtypes"]][:3] == \
+        [np.dtype(d) for d in tman["dtypes"]][:3]
+    with np.load(jdir / "arrays.npz") as a, np.load(tdir / "arrays.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in ("0", "1", "2"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_uncommitted_checkpoint_ignored(tmp_path):
+    tree = {"a": torch.zeros(3)}
+    store.save(str(tmp_path), 5, tree)
+    # a torn write: directory without COMMITTED sentinel
+    bad = tmp_path / "step_00000009"
+    bad.mkdir()
+    (bad / "arrays.npz").write_bytes(b"garbage")
+    assert store.latest_step(str(tmp_path)) == 5
+    out, _ = store.restore(str(tmp_path), tree)
+    assert torch.equal(out["a"], tree["a"])
+
+
+def test_async_checkpointer(tmp_path):
+    ck = store.AsyncCheckpointer(str(tmp_path))
+    ck.save(3, {"w": torch.ones((64, 64))})
+    ck.wait()
+    assert store.latest_step(str(tmp_path)) == 3
+    out, _ = store.restore(str(tmp_path), {"w": torch.zeros((64, 64))})
+    assert torch.equal(out["w"], torch.ones((64, 64)))
+
+
+def test_prune_keeps_the_last_three_committed(tmp_path):
+    for step in range(1, 6):
+        store.save(str(tmp_path), step, [torch.full((2,), float(step))])
+    kept = sorted(p.name for p in tmp_path.glob("step_*"))
+    assert kept == ["step_00000003", "step_00000004", "step_00000005"]
+    out, _ = store.restore(str(tmp_path), [torch.zeros(2)], step=4)
+    assert torch.equal(out[0], torch.full((2,), 4.0))

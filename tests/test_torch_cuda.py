@@ -812,3 +812,75 @@ def test_cuda_engine_canonical_mix_equals_serial_oracle(monkeypatch):
         card.stop_pump()
     for i, x in enumerate(xs):
         assert torch.equal(got[i], oracle(x, 10 + i, params).data.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_two_party_threads_equal_simcomm(monkeypatch):
+    """RESNET_SMOKE's reduced plan as two parties in two threads over
+    localhost ``Session.connect``, each holding one party's rows (every
+    ReLU kernel at a local party dimension of 1): the combined output
+    equals the ``SimComm`` generator-loop run on the card with the same
+    shares, pool and key, and the CPU run; both parties' framed rounds and
+    bytes equal ``Schedule.framed()``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+
+    from repro_torch import api
+    from repro_torch.configs import RESNET_SMOKE
+    from repro_torch.core import beaver, comm as comm_lib, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.models import resnet
+    from repro_torch.transport import free_port
+
+    monkeypatch.setenv("HB_ROUND_LOOP", "python")
+    params = resnet.init(RESNET_SMOKE, seed=0, device="cpu")
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, RESNET_SMOKE, relu_fn=relu_fn)
+
+    plan = api.trace_plan(afn, params, (2, 3, 8, 8), name="smoke")
+    plan = plan.with_hb(api.HBConfig(
+        tuple([api.HBLayer(k=21, m=13)] * (plan.n_groups - 1)
+              + [api.HBLayer(k=13, m=13)]), plan.group_elements))
+
+    def sim(device):
+        p = resnet._map_paths(lambda _, t: t.to(device), params)
+        x = torch.randn((2, 3, 8, 8), generator=torch.Generator().manual_seed(1)) * 0.5
+        X = MPCTensor.from_plain(prng.PRNGKey(2, device), x.to(device))
+        pool = beaver.gen_plan_triples(prng.PRNGKey(3, device), plan.triple_specs())
+        model = api.compile(afn, p, RESNET_SMOKE, plan,
+                            api.Session(key=0, device=device,
+                                        provider=beaver.TriplePool(pool)))
+        return p, X, pool, model(X, key=prng.PRNGKey(4, device)).data
+
+    want_cpu = sim("cpu")[3]
+    p, X, pool, want = sim("cuda")
+    port, res = free_port(), {}
+
+    def party(i):
+        session = api.Session.connect(
+            i, listen=("127.0.0.1", port) if i == 0 else None,
+            peer=("127.0.0.1", port) if i == 1 else None, key=0,
+            session_id="cuda", plan_digest=plan.digest(), device="cuda",
+            provider=beaver.TriplePool(beaver.slice_party_pool(pool, i)),
+            timeout_s=120.0, handshake_timeout_s=120.0)
+        model = api.compile(afn, p, RESNET_SMOKE, plan, session)
+        res[i] = (model(MPCTensor(X.data[i:i + 1], X.frac_bits),
+                        key=prng.PRNGKey(4, "cuda")).data, session)
+
+    threads = [threading.Thread(target=party, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+        assert not t.is_alive()
+    got = torch.cat([res[0][0], res[1][0]])
+    assert torch.equal(got, want) and torch.equal(got.cpu(), want_cpu)
+    framed = plan.schedule().framed()
+    for i in (0, 1):
+        sess = res[i][1]
+        assert sess.transport.round_bytes == list(framed.round_bytes)
+        assert comm_lib.find_resilient(sess.comm).round_bytes == \
+            list(framed.round_bytes)
+        sess.transport.close()

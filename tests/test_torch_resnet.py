@@ -304,6 +304,33 @@ def test_entry_points_default_to_cuda(make):
             make(None)
 
 
+def test_deployment_entry_points_default_to_cuda(tmp_path):
+    """The two-party deployment's entry points resolve ``device=None`` (and
+    the CLIs' default ``--device``) to CUDA and raise without a card,
+    before any socket is opened or any file read."""
+    from repro_torch.launch import party_host
+    from repro_torch.serve import frontend
+    from repro_torch.transport import load_party, tenant_provider_factory
+
+    entries = [
+        lambda: tapi.Session.connect(0, listen=("127.0.0.1", 0)),
+        lambda: load_party(tmp_path, 0),
+        lambda: tenant_provider_factory(0, party=0),
+        lambda: party_host.run(["--party", "0", "--job", str(tmp_path),
+                                "--listen", "127.0.0.1:0"]),
+        lambda: frontend.build_engine(frontend.build_parser().parse_args(
+            ["--job", str(tmp_path), "--listen", "127.0.0.1:0"]), {}),
+    ]
+    assert party_host.build_parser().parse_args(
+        ["--party", "1", "--job", "j", "--peer", ":1"]).device == "cuda"
+    if torch.cuda.is_available():
+        assert tenant_provider_factory(0, party=0)("t").base._key.device.type == "cuda"
+        return
+    for entry in entries:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            entry()
+
+
 def _imports(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -322,7 +349,9 @@ def test_port_imports_neither_jax_nor_reference():
     for sub in ("search/engine.py", "search/simulator.py", "search/finetune.py",
                 "data/pipeline.py", "train/optimizer.py", "nn/rope_tables.py",
                 "serve/engine.py", "serve/frontend.py", "runtime/watchdog.py",
-                "core/gmw_ref.py"):
+                "core/gmw_ref.py", "core/faults.py", "checkpoint/store.py",
+                "transport/socket.py", "transport/job.py",
+                "transport/engine_link.py", "launch/party_host.py"):
         assert ROOT / "src" / "repro_torch" / sub in files, sub
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -28,8 +28,8 @@ import torch
 from repro import api as japi, serve as jserve
 from repro.core import mpc_tensor as jmpc, ring as jring
 from repro_torch import api as tapi, errors, serve
-from repro_torch.core import beaver, comm as tcomm, mpc_tensor as tmpc, prng, \
-    ring as tring, schedule
+from repro_torch.core import beaver, comm as tcomm, faults, mpc_tensor as tmpc, \
+    prng, ring as tring, schedule
 from repro_torch.serve import BatchPolicy, InferenceEngine
 
 D_IN, D_HID, D_OUT = 6, 5, 4
@@ -470,6 +470,82 @@ def test_batch_retry_on_transient_fault_bit_identical():
         assert engine.tenant_usage(tenant)["consumed_elements"] == per_request
 
 
+def _chaos_engine(fault_plan, *, resilient_retries=3, **kw):
+    """An engine whose session comm realizes ``fault_plan`` below a
+    ``ResilientComm`` (``test_engine.py``'s ``_chaos_engine``); returns
+    (engine, injector, resilient)."""
+    fic = faults.FaultInjectingComm(fault_plan)
+    rc = tcomm.ResilientComm(fic, max_retries=resilient_retries)
+    engine = _engine(session=tapi.Session(key=0, comm=rc, device="cpu"), **kw)
+    return engine, fic, rc
+
+
+def test_batch_retry_on_transient_faults_bit_identical():
+    """Mirrors ``test_engine.py::test_batch_retry_on_transient_faults_bit_identical``:
+    transport retry budget 0 forces every transient of a real
+    ``FaultInjectingComm`` up to the engine; the whole batch re-executes
+    (stateful ``StreamingTTP`` providers rolled back, same request keys)
+    and the results equal a fault-free engine's, each tenant billed once."""
+    def factory(tenant):
+        return beaver.StreamingTTP(prng.PRNGKey(len(tenant), "cpu"))
+
+    clean = _engine(provider_factory=factory)
+    f_clean = [clean.submit(t, _x(i, 2)) for i, t in enumerate(["alice", "bob"])]
+    want = [f.result() for f in f_clean]
+    engine, fic, rc = _chaos_engine(faults.FaultPlan.seeded(3, 10, drops=1,
+                                                            corrupts=1),
+                                    resilient_retries=0, provider_factory=factory)
+    futs = [engine.submit(t, _x(i, 2)) for i, t in enumerate(["alice", "bob"])]
+    for f, w in zip(futs, want):
+        assert torch.equal(f.result().data, w.data)
+    stats = engine.stats()
+    assert stats["retries"] == 2 == engine.reports[-1].retries
+    assert fic.injected["drop"] == 1 and fic.injected["corrupt"] == 1
+    per_request = 2 * D_HID + 2 * D_OUT
+    assert engine.tenant_usage("alice")["consumed_elements"] == per_request
+
+
+def test_transport_absorbs_faults_engine_counts_recovery():
+    """Mirrors ``test_engine.py::test_transport_absorbs_faults_engine_counts_recovery``:
+    with transport-level retries available the engine never re-runs the
+    batch; it reports the rounds the transport healed."""
+    engine, fic, rc = _chaos_engine(faults.FaultPlan.seeded(5, 10, drops=2,
+                                                            corrupts=1),
+                                    resilient_retries=3)
+    out = engine.submit("alice", _x(0, 2)).result()
+    assert torch.equal(out.data, _serial_oracle(_x(0, 2), 0).data)
+    stats = engine.stats()
+    assert stats["retries"] == 0
+    assert stats["faults_recovered"] == 3 == engine.reports[-1].faults_recovered
+    assert rc.retries == 3 and rc.recovered == 3
+    rep = engine.reports[-1]
+    assert (rep.measured_rounds, rep.measured_bytes) == \
+        (rep.predicted_rounds, rep.predicted_bytes)
+
+
+def test_party_crash_restart_hook_retries_batch():
+    """Mirrors ``test_engine.py::test_party_crash_restart_hook_retries_batch``:
+    a mid-replay crash fails the batch unless ``on_party_crash`` revives
+    the transport; with the hook, the retried results are bit-identical."""
+    engine, fic, rc = _chaos_engine(faults.FaultPlan.seeded(
+        0, 10, drops=0, corrupts=0, crash_round=2))
+    fut = engine.submit("alice", _x(0, 2))
+    with pytest.raises(errors.PartyCrashed):
+        engine.flush()
+    with pytest.raises(errors.PartyCrashed) as ei:
+        fut.result()
+    assert ei.value.request_id == fut.request.id
+
+    holder = {}
+    engine2, fic2, rc2 = _chaos_engine(
+        faults.FaultPlan.seeded(0, 10, drops=0, corrupts=0, crash_round=2),
+        on_party_crash=lambda e: holder["fic"].restart())
+    holder["fic"] = fic2
+    out = engine2.submit("alice", _x(0, 2)).result()
+    assert torch.equal(out.data, _serial_oracle(_x(0, 2), 0).data)
+    assert fic2.restarts == 1 and engine2.stats()["retries"] == 1
+
+
 def test_non_retryable_failure_fails_every_future():
     """A fault that is not retryable fails the batch's futures with it (the
     reference's ``PartyCrashed`` path without a restart hook)."""
@@ -643,8 +719,8 @@ def test_frontend_http_roundtrip():
     """Mirrors ``test_frontend.py::test_frontend_http_roundtrip``, with
     concurrent clients: three ``POST /infer`` from threads, each reply's
     ``y`` equal to the reveal of the same request id on a direct engine;
-    ``/healthz``, ``/stats`` (no ``transport`` key: no socket transport is
-    ported), a 404 and a 400."""
+    ``/healthz``, ``/stats`` (no ``transport`` key: the engine runs over
+    ``SimComm``, no socket), a 404 and a 400."""
     engine = _engine(policy=BatchPolicy(max_batch=2))
     frontend = serve.Frontend(engine)
     host, port = frontend.serve_background(HOST, 0)
@@ -736,3 +812,150 @@ def test_lm_engine_merges_opens_and_equals_serial_oracle():
                                    .numpy(), atol=5e-2)
     with pytest.raises(errors.ShapeMismatch):
         engine.submit("alice", np.zeros((1, 5, cfg.d_model), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Two-party serving: the engine link and the leader's deployment CLI
+# ---------------------------------------------------------------------------
+
+def _smoke_resnet():
+    """RESNET_SMOKE (the port's seeded weights) and its reduced plan at
+    batch 2, as ``test_frontend.py``'s ``smoke`` fixture."""
+    from repro_torch.configs import RESNET_SMOKE
+    from repro_torch.models import resnet
+
+    params = resnet.init(RESNET_SMOKE, seed=0, device="cpu")
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, RESNET_SMOKE, relu_fn=relu_fn)
+
+    plan = tapi.trace_plan(afn, params, (2, 3, 8, 8), name="smoke")
+    hb = tapi.HBConfig(tuple([tapi.HBLayer(k=21, m=13)] * (plan.n_groups - 1)
+                             + [tapi.HBLayer(k=13, m=13)]), plan.group_elements)
+    return afn, params, plan.with_hb(hb), RESNET_SMOKE
+
+
+def _smoke_x(seed, batch=2):
+    return np.random.default_rng(seed).standard_normal(
+        (batch, 3, 8, 8)).astype(np.float32) * 0.5
+
+
+def _sim_engine_outs(afn, params, plan, cfg, reqs, ttp_seed=0):
+    """The single-process SimComm engine's outputs for ``reqs``."""
+    from repro_torch.transport import tenant_provider_factory
+
+    ref = InferenceEngine(afn, params, cfg, plan,
+                          tapi.Session(key=0, device="cpu"),
+                          provider_factory=tenant_provider_factory(
+                              ttp_seed, device="cpu"))
+    futs = [ref.submit(t, x) for t, x in reqs]
+    ref.flush()
+    return [f.result(timeout_s=WAIT_S) for f in futs]
+
+
+def test_engine_link_bit_identical_to_sim_engine():
+    """Mirrors ``test_frontend.py::test_engine_link_bit_identical_to_sim_engine``:
+    mixed-tenant submissions through the leader/follower split (a leader
+    engine over ``Session.connect`` with ``EngineLink``, a
+    ``serve_follower`` thread with only its own rows) resolve to outputs
+    bit-identical (share level) to the single-process SimComm engine on the
+    same request ids, inputs and seeds; the follower serves one batch and
+    both sides' framed wire bytes equal the batch's merged schedule."""
+    from repro_torch.transport import (EngineLink, free_port, serve_follower,
+                                       tenant_provider_factory)
+
+    afn, params, plan, cfg = _smoke_resnet()
+    reqs = [("alice", _smoke_x(50)), ("bob", _smoke_x(51)), ("alice", _smoke_x(52))]
+    ref_outs = _sim_engine_outs(afn, params, plan, cfg, reqs)
+
+    port = free_port()
+    follower_done = {}
+
+    def follower():
+        session = tapi.Session.connect(
+            1, peer=(HOST, port), key=0, session_id="link",
+            plan_digest=plan.digest(), handshake_timeout_s=WAIT_S,
+            timeout_s=WAIT_S, device="cpu")
+        model = tapi.compile(afn, params, cfg, plan, session)
+        try:
+            follower_done["served"] = serve_follower(
+                session.transport, model,
+                provider_factory=tenant_provider_factory(0, party=1, device="cpu"))
+            follower_done["bytes"] = session.transport.round_bytes
+        finally:
+            session.transport.close()
+
+    t = threading.Thread(target=follower)
+    t.start()
+    session = tapi.Session.connect(
+        0, listen=(HOST, port), key=0, session_id="link",
+        plan_digest=plan.digest(), handshake_timeout_s=WAIT_S,
+        timeout_s=WAIT_S, device="cpu")
+    engine = InferenceEngine(afn, params, cfg, plan, session,
+                             provider_factory=tenant_provider_factory(
+                                 0, party=0, device="cpu"))
+    link = EngineLink(engine)
+    try:
+        futs = [engine.submit(t_, x) for t_, x in reqs]
+        engine.flush()
+        for f, want in zip(futs, ref_outs):
+            assert torch.equal(f.result(timeout_s=WAIT_S).data, want.data)
+        rep = engine.reports[-1]
+        assert rep.n_requests == 3
+        assert (rep.measured_rounds, rep.measured_bytes) == \
+            (rep.predicted_rounds, rep.predicted_bytes)
+        framed = engine._merged_schedule(
+            [type("R", (), {"shape": tuple(x.shape)})() for _, x in reqs]).framed()
+        assert session.transport.round_bytes == list(framed.round_bytes)
+    finally:
+        link.shutdown()
+        t.join(WAIT_S)
+        session.transport.close()
+    assert not t.is_alive()
+    assert follower_done.get("served") == 1
+    assert follower_done["bytes"] == session.transport.round_bytes
+
+
+def test_frontend_cli_builds_the_leader_engine(tmp_path):
+    """The leader's deployment CLI (``serve/frontend.py`` ``build_parser``,
+    ``build_engine``) against a ``party_host --follow`` follower in a
+    thread, from a serving-mode job directory (both parties derive the
+    weights from its ``params_seed``): ``/stats`` carries the socket
+    transport's counters, every request equals the single-process SimComm
+    engine's, and the shutdown releases the follower."""
+    from repro_torch.launch import party_host
+    from repro_torch.serve import frontend as fe
+    from repro_torch.transport import free_port, load_job, write_job
+
+    afn, params, plan, cfg = _smoke_resnet()
+    write_job(tmp_path, plan=plan, config="smoke", params_seed=0, infer_key=4,
+              session_seed=0, ttp_seed=9)
+    port = free_port()
+    args = fe.build_parser().parse_args(
+        ["--job", str(tmp_path), "--listen", f"{HOST}:{port}", "--max-batch", "4",
+         "--device", "cpu"])
+    assert (args.party, args.max_batch, args.http, args.device) == \
+        (0, 4, "127.0.0.1:9001", "cpu")
+    rc = {}
+    follower = threading.Thread(target=lambda: rc.setdefault("rc", party_host.run(
+        ["--party", "1", "--job", str(tmp_path), "--peer", f"{HOST}:{port}",
+         "--follow", "--device", "cpu", "--timeout-s", str(WAIT_S)])))
+    follower.start()
+    engine, link = fe.build_engine(args, load_job(tmp_path))
+    reqs = [("alice", _smoke_x(60)), ("bob", _smoke_x(61))]
+    try:
+        futs = [engine.submit(t_, x) for t_, x in reqs]
+        engine.flush()
+        outs = [f.result(timeout_s=WAIT_S) for f in futs]
+        stats = fe.Frontend(engine)._stats()
+        assert stats["transport"]["party"] == 0
+        assert stats["transport"]["rounds"] == engine.reports[-1].measured_rounds
+        assert stats["transport"]["retries"] == 0
+    finally:
+        link.shutdown()
+        follower.join(WAIT_S)
+        link.sock.close()
+    assert not follower.is_alive() and rc["rc"] == 0
+    want = _sim_engine_outs(afn, params, plan, cfg, reqs, ttp_seed=9)
+    for got, w in zip(outs, want):
+        assert torch.equal(got.data, w.data)

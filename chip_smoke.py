@@ -52,6 +52,7 @@ Phases (any failure raises, and the script exits non-zero):
    (21, 13) on every ReLU group but the last, which is culled), and the
    same two with the MSB-cone-pruned adder (``cone=True``).  Per plan:
    offline, the session's triple pool for 1 + ``ONLINE_CALLS`` calls
+   (``CONE_ONLINE_CALLS`` for the cone plans)
    (``Session.offline``, 4 streams) is generated before any timer (its
    wall and device bytes printed); then each call runs twice on the same
    key and triples (the pool rolled back between them): on the generator
@@ -66,7 +67,8 @@ Phases (any failure raises, and the script exits non-zero):
    often as their levels say (``adder_launches``: the cone adder one
    cone_step per round).  Each replay must give the eager call's shares,
    launch nothing from the host, hold in its graph the eager call's
-   launches, and leave the previous replay's result as it was.  Every
+   launches, and leave the previous replay's result as it was (a cone
+   plan, with one timed replay, takes one more, untimed, for that).  Every
    call's fused rounds and bytes must equal ``plan.schedule(streams=4)``;
    the exact plans' revealed logits must match the plaintext forward
    within the stated tolerance.  Then, per plan, the replay's input refill
@@ -179,7 +181,35 @@ Phases (any failure raises, and the script exits non-zero):
    triples sliced per party), each equal to the SimComm engine's serial
    run; then each ReLU kernel (the opening forms for party 0 and party 1)
    and ring_matmul at P = 1 against its plain version at every shape of
-   the deploy path, the stem's timed.
+   the deploy path, the stem's timed;
+15. mesh: two-party device execution (``launch.mesh``, ``MeshComm``, the
+   mesh-native ``jit_step``) on the deploy phase's setup and against its
+   ``SimComm`` oracle: (a) the smoke mesh (1, 1) in this process,
+   ``jit_step`` without and with the data axis (``shard_pool(pool, 1)``),
+   each once on the captured replay (timed beside the replay's; its
+   counters equal to the schedule round for round) and once on the
+   generator loop (its census equal to the schedule round for round):
+   shares equal; (b)
+   the party axis of size 2 as two ranks spawned on the one card
+   (``spawn_local``: ``spawn`` start method, ``torch.cuda.set_device(0)``,
+   a gloo group, every round staged through pinned host memory): exact and
+   reduced, one untimed call of each plan on every rank, then
+   ``MESH_CALLS`` timed calls each: each rank's census equal to the
+   schedule, rank 0's gathered shares equal to the oracle's, each party's
+   median wall (beside the deploy phase's socket parties' from this run),
+   rank 0's launches as the plan counts them for one party (zeroed just
+   before each timed call, read just after; ``launches_by_path["mesh"]``);
+   (c) the (2, 2) mesh as
+   four ranks, reduced: each shard's census equal to the schedule of the
+   plan traced at batch 2, its shares to the ``SimComm`` step on its rows
+   with ``TriplePool.shard``'s pool, the gathered reveal within 2^(13-16)
+   + 1e-4 of the unsharded call's; (d) (b)'s two ranks, their gloo group
+   left, asking for an NCCL mesh on the one card: ``make_mpc_mesh`` must
+   refuse them (its message and NCCL's own printed); then each ReLU kernel at a data shard's P = 1
+   shapes and ring_matmul at the smoke mesh's rows, against their plain
+   versions (records on path "mesh").  Every spawned run is bounded
+   (``MESH_WAIT_S``); the kernels are built here before any rank starts,
+   and ranks only load them.
 
 Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
@@ -262,8 +292,10 @@ SHAPE_KERNELS = ("beaver_and", "ks_mask", "ks_step", "ks_combine", "ks_level",
 # timed online calls per plan and loop, after one warm-up call; the pool
 # holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
 # each request's served to the generator loop and to the replay in turn
-# (3 until PR 23; 2 from PR 24, whose deploy phase needed the pools' time)
+# (once 3, cut to make room for the deploy phase); the cone plans take
+# CONE_ONLINE_CALLS, their pools' time going to the mesh phase
 ONLINE_CALLS = 2
+CONE_ONLINE_CALLS = 1
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -1217,6 +1249,19 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
                          "under the next replay")
         held = (r["outs"], [type(o)(o.data.clone(), o.frac_bits) for o in r["outs"]])
         replays.append(r)
+    if len(replays) == 1:
+        # one timed replay (CONE_ONLINE_CALLS): the held result's check
+        # takes one more, untimed, replay of the last call's triples
+        provider.rollback(token)
+        r = _call(model, enc, "scan", keys[-1], cc)
+        _check_call(name, r, sched, want, errs)
+        if any(r["counts"].values()):
+            raise AssertionError(f"{name}: a replay launched {r['counts']} from "
+                                 "the host")
+        _same_shares(name, r["outs"], eager[-1]["outs"], "replay shares differ from "
+                     "the eager call's")
+        _same_shares(name, held[0], held[1], "a held replay result changed under "
+                     "the next replay")
     os.environ["HB_ROUND_LOOP"] = "python"
     counts = eager[-1]["counts"]
     masked = counts.pop("pack_ring_masked")
@@ -1311,6 +1356,7 @@ def main_path_phase():
     runs, launches = {}, {}
     for name, plan in setup[2].items():
         runs[name] = online_calls(name, plan, setup, expect=PATH_KERNELS[name],
+                                  calls=CONE_ONLINE_CALLS if plan.cone else ONLINE_CALLS,
                                   profile=name == "exact")
         for k, v in runs[name]["launches"].items():
             launches.setdefault(k, {})[name] = v
@@ -3041,7 +3087,8 @@ def deploy_phase():
     faults in process, (b) two threads over localhost sockets, (c) two
     ``party_host`` processes and a journal resume, (d) the engine link.
     Returns the record and the path's launches per kernel (summed over
-    (b)'s unshaped runs)."""
+    (b)'s unshaped runs), the setup and the SimComm oracle's runs (the
+    mesh phase's inputs)."""
     t0 = time.perf_counter()
     s = deploy_setup()
     setup_s = time.perf_counter() - t0
@@ -3065,33 +3112,22 @@ def deploy_phase():
     print(f"deploy phase parts: {json.dumps(stamps)}", flush=True)
     return ({"offline_s": s["offline_s"], "faults": faults_rec,
              "threads": threads_rec, "processes": procs_rec, "link": link_rec,
-             "parts_s": stamps}, launches)
+             "parts_s": stamps}, launches, s, sim)
 
 
-def deploy_kernel_phase():
+def party_kernel_rows(shapes: dict, path: str, rm_label: str = "one party") -> tuple:
     """Each ReLU kernel and ring_matmul at a local party dimension of 1, at
-    the deploy path's shapes (``resnet_shape_launches`` of its plans, one
-    party), against its plain version: every shape checked, the stem's
-    timed (records on path "deploy"); the opening forms (beaver_and's,
+    ``shapes`` (kernel -> the shapes ``resnet_shape_launches`` keys it by),
+    against its plain version: every shape checked, the largest word count
+    timed (records on ``path``); the opening forms (beaver_and's,
     ks_combine's and ks_step's reads of the peer's halves with ``sel``) for
-    party 0 (sel all-ones) and party 1 (sel zero)."""
-    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    party 0 (sel all-ones) and party 1 (sel zero).  Returns the timed
+    records and the count of shapes checked."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import resnet
-    from repro_torch.configs import RESNET18
 
     gen = torch.Generator().manual_seed(24)
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     rows = []
-    params = resnet.init(RESNET18, seed=0, device="meta")
-    exact = resnet.trace(params, RESNET18, batch=DEPLOY_BATCH)
-    reduced = exact.with_hb(HBConfig(
-        tuple([HBLayer(k=21, m=13)] * (exact.n_groups - 1) + [HBLayer(k=13, m=13)]),
-        exact.group_elements))
-    shapes = {k: set() for k in SHAPE_KERNELS}
-    for plan in (exact, reduced):
-        for k, by_shape in resnet_shape_launches(plan, streams=1, batch=2).items():
-            shapes[k] |= set(by_shape)
     stem_words = max(n for _, n in shapes["ks_mask"])
     checked = 0
 
@@ -3100,7 +3136,7 @@ def deploy_kernel_phase():
         if timed:
             timed_record(rows, scratch.zero_, name, SOURCES[name], REPLACES[name],
                          fn, plain, bytes_moved, ops_s=ops_s, shape=shape,
-                         path="deploy")
+                         path=path)
         else:
             max_abs_err(fn(), plain())
         checked += 1
@@ -3152,18 +3188,384 @@ def deploy_kernel_phase():
         check("unpack", f"R=1 w=1 W={packed.shape[-1]} n={n}",
               lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
               4 * packed.numel() + 4 * P * n, packed.shape[-1] == stem_words)
-    stem_m = max(m for m, _, _ in shapes["ring_matmul"])
+    stem_m = max((m for m, _, _ in shapes["ring_matmul"]), default=0)
     for m, k, n in sorted(shapes["ring_matmul"], reverse=True):
         x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
                           dtype=torch.int64).cuda()
         wt = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
                            dtype=torch.int64).to(torch.int32).cuda()
         bytes_s, ops_s = ring_matmul_bound_s(m, k, n)
-        check("ring_matmul", f"M={m} K={k} N={n} (one party)",
+        check("ring_matmul", f"M={m} K={k} N={n} ({rm_label})",
               lambda: ops.ring_matmul(x, wt), lambda: ref.ring_matmul(x, wt),
               bytes_s * HBM_BYTES_PER_S, m == stem_m and k == 576, ops_s=ops_s)
+    return rows, checked
+
+
+def deploy_kernel_phase():
+    """``party_kernel_rows`` at the deploy path's shapes
+    (``resnet_shape_launches`` of its plans, one party: P = 1, batch 4)."""
+    from repro_torch.configs import RESNET18
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.models import resnet
+
+    params = resnet.init(RESNET18, seed=0, device="meta")
+    exact = resnet.trace(params, RESNET18, batch=DEPLOY_BATCH)
+    reduced = exact.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (exact.n_groups - 1) + [HBLayer(k=13, m=13)]),
+        exact.group_elements))
+    shapes = {k: set() for k in SHAPE_KERNELS}
+    for plan in (exact, reduced):
+        for k, by_shape in resnet_shape_launches(plan, streams=1, batch=2).items():
+            shapes[k] |= set(by_shape)
+    rows, checked = party_kernel_rows(shapes, "deploy")
     print(f"deploy kernels: {checked} P = 1 launches at the deploy path's shapes "
           f"equal their plain versions, {len(rows)} timed", flush=True)
+    return rows
+
+
+# the mesh phase (two-party device execution over ``launch.mesh``) runs the
+# deploy phase's setup (full-width ResNet-18, one input of DEPLOY_BATCH
+# images, its exact and reduced plans, one call's pool each, key 4): on the
+# smoke mesh in this process, on a (2, 1) mesh of two spawned gloo ranks
+# and on a (2, MESH_DATA) mesh of 2 * MESH_DATA (reduced only); every
+# spawned run bounded by MESH_WAIT_S; the data axis's reveal within the
+# reference's tolerance (``tests/test_engine.py``'s data-axis script)
+MESH_DATA = 2
+MESH_WAIT_S = 300.0
+# timed jit_step calls a plan on every rank, after one untimed call of
+# every plan (median, min and max printed)
+MESH_CALLS = 3
+MESH_REVEAL_ATOL = 2 ** (13 - 16) + 1e-4
+
+
+def mesh_rank(rank, world, init_method, plans, names, x_data, nccl_probe=False):
+    """One rank of a mesh of the mesh phase, in its own spawned process on
+    the one card (``launch.mesh.spawn_local``): its (2, world / 2) gloo
+    mesh; the deploy setup's weights (``resnet.init(cfg, seed=0)``) and
+    each plan's pool (key 3; ``shard_pool`` on a data axis) made here; one
+    untimed ``jit_step`` call of every plan (the process's first loads, the
+    allocator's and gloo's buffers grown), then each plan ``MESH_CALLS``
+    times, each call timed from a barrier, with the launch counters zeroed
+    just before and read just after; every call's block, census and
+    launches must equal the first's.  Returns per plan its walls, census,
+    output block, launches and (rank 0) the gathered output, on the CPU;
+    with ``nccl_probe``, the gloo group left, then ``mesh_nccl_probe``'s
+    record."""
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.configs import RESNET18
+    from repro_torch.core import beaver, prng
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mpc_mesh
+    from repro_torch.models import resnet
+
+    torch.cuda.set_device(0)
+    n_data = world // 2
+    mesh = make_mpc_mesh(n_data, backend="gloo", device="cuda",
+                         init_method=init_method, rank=rank)
+    data_axis = "data" if n_data > 1 else None
+    params = resnet.init(RESNET18, seed=0, device="cuda")
+    x, key = x_data.cuda(), prng.PRNGKey(4, "cuda")
+    steps = {}
+    for name in names:
+        pool = beaver.gen_plan_triples(prng.PRNGKey(3, "cuda"), plans[name].triple_specs())
+        if data_axis is not None:
+            pool = beaver.shard_pool(pool, n_data)
+        model = api.compile(_deploy_afn(RESNET18), params, RESNET18, plans[name],
+                            api.Session(key=0, device="cuda"))
+        steps[name] = (model.jit_step(mesh, data_axis=data_axis), pool)
+    for step, pool in steps.values():
+        step(params, x, pool, key)
+    runs = {}
+    for name in names:
+        step, pool = steps[name]
+        walls, first = [], None
+        for i in range(MESH_CALLS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            block = step(params, x, pool, key)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            got = (block, _deploy_counts(), [(c.count, c.bytes) for c in step.census])
+            if first is None:
+                first = got
+            elif not torch.equal(got[0], first[0]) or got[1:] != first[1:]:
+                raise AssertionError(f"mesh rank {rank} {name}: call {i}'s block, "
+                                     "launches or census differ from the first's")
+        gathered = mesh.gather(block, step.spec)
+        runs[name] = {"wall_s": walls, "block": block.cpu(), "launches": first[1],
+                      "census": first[2],
+                      "gathered": None if gathered is None else gathered.cpu()}
+    out = {"coords": dict(mesh.coords), "runs": runs}
+    if nccl_probe:
+        dist.barrier()
+        dist.destroy_process_group()
+        out["nccl_probe"] = mesh_nccl_probe(rank, world, init_method + "_nccl")
+    return out
+
+
+def mesh_nccl_probe(rank, world, init_method):
+    """Two ranks on the one card asking for an NCCL mesh: ``make_mpc_mesh``
+    must refuse them (its message returned); then one NCCL all-reduce on
+    the group they made, whose error (or result) is returned too."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mpc_mesh
+
+    out = {"check": None}
+    try:
+        make_mpc_mesh(world // 2, backend="nccl", device="cuda",
+                      init_method=init_method, rank=rank)
+    except ValueError as e:
+        out["check"] = str(e)
+    try:
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out["nccl"] = f"no error: the all-reduce gave {t.item()}"
+    except Exception as e:         # noqa: BLE001 (NCCL's refusal is the record)
+        out["nccl"] = f"{type(e).__name__}: {e}"
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return out
+
+
+def _mesh_smoke(s, sim):
+    """(a) The smoke mesh in this process: per plan, ``serve_step(None)``
+    on the captured replay (its first call captures), then ``jit_step`` on
+    ``make_mpc_smoke_mesh()`` and with ``data_axis="data"`` on
+    ``shard_pool(pool, 1)``, each once on the replay (timed beside
+    ``serve_step(None)``'s: its counters the schedule round for round, its
+    census empty, the flips being in the graph) and once on the generator
+    loop (its census the schedule round for round: one exchange handed to
+    the ``MeshComm`` per fused round); every call's shares equal to the
+    SimComm oracle's."""
+    from repro_torch import api
+    from repro_torch.core import beaver, prng
+    from repro_torch.launch.mesh import make_mpc_smoke_mesh
+
+    os.environ["HB_ROUND_LOOP"] = "scan"
+    mesh, key, X = make_mpc_smoke_mesh("cuda"), prng.PRNGKey(4, "cuda"), s["X"]
+    rec = {}
+    for name in DEPLOY_PLANS:
+        plan, pool = s["plans"][name], s["pools"][name]
+        sched = plan.schedule()
+        model = api.compile(_deploy_afn(s["cfg"]), s["params"], s["cfg"], plan,
+                            api.Session(key=0, device="cuda"))
+        replay = model.serve_step()
+        first, first_s = _timed(lambda: replay(s["params"], X.data, pool, key))
+        want, replay_s = _timed(lambda: replay(s["params"], X.data, pool, key))
+        r = {"first_call_s": first_s, "replay_s": replay_s}
+        for data_axis, triples in ((None, pool), ("data", beaver.shard_pool(pool, 1))):
+            step = model.jit_step(mesh, data_axis=data_axis)
+            where = f"mesh (a) {name} data_axis={data_axis}"
+            got, wall = _timed(lambda: step(s["params"], X.data, triples, key))
+            if (step.comm.n_rounds, step.comm.round_bytes) != \
+                    (sched.n_rounds, list(sched.round_bytes)) or step.census:
+                raise AssertionError(f"{where}: the replay counted {step.comm.n_rounds} "
+                                     f"rounds / {step.comm.bytes_tx} B and "
+                                     f"{len(step.census)} host exchanges; the schedule "
+                                     f"says {sched.n_rounds} / {sched.bytes_tx} and "
+                                     "the graph holds the flips")
+            os.environ["HB_ROUND_LOOP"] = "python"
+            eager, eager_s = _timed(lambda: step(s["params"], X.data, triples, key))
+            os.environ["HB_ROUND_LOOP"] = "scan"
+            census = [(c.count, c.bytes) for c in step.census]
+            if census != [(1, b) for b in sched.round_bytes]:
+                raise AssertionError(f"{where}: on the generator loop, census "
+                                     f"{len(census)} exchanges / "
+                                     f"{sum(b for _, b in census)} B != schedule "
+                                     f"{sched.n_rounds} / {sched.bytes_tx}")
+            for what, out in (("first", first), ("replay", want), ("mesh", got),
+                              ("mesh generator-loop", eager)):
+                if not torch.equal(out, sim[name]["out"].data):
+                    raise AssertionError(f"{where}: the {what} call's shares differ "
+                                         "from SimComm's")
+            r["data" if data_axis else "party"] = {"wall_s": wall, "eager_wall_s": eager_s,
+                                                   "rounds": len(census),
+                                                   "bytes": sum(b for _, b in census)}
+        rec[name] = r
+        print(f"mesh (a) smoke mesh {name}: jit_step on the replay "
+              f"{r['party']['wall_s']:.4f} s, with the data axis "
+              f"{r['data']['wall_s']:.4f} s, beside serve_step(None)'s replay "
+              f"{replay_s:.4f} s (its first call, with the capture, {first_s:.3f} s); "
+              f"on the generator loop {r['party']['eager_wall_s']:.4f} / "
+              f"{r['data']['eager_wall_s']:.4f} s; shares equal SimComm's; replayed "
+              f"counters and the generator loop's census {sched.n_rounds} exchanges / "
+              f"{sched.bytes_tx} B == the schedule", flush=True)
+    os.environ.pop("HB_ROUND_LOOP", None)
+    return rec
+
+
+def _mesh_ranks_check(what, name, res, sched, want_blocks, launches_want):
+    """Every rank's census equal to ``sched`` round for round, its block to
+    ``want_blocks[coords]``; rank 0's launches to ``launches_want`` (the
+    plan's kernels, every pack_ring masked)."""
+    for r in res:
+        run, at = r["runs"][name], (r["coords"]["party"], r["coords"]["data"])
+        if run["census"] != [(1, b) for b in sched.round_bytes]:
+            raise AssertionError(f"mesh {what} {name} rank at {at}: census "
+                                 f"{len(run['census'])} exchanges / "
+                                 f"{sum(b for _, b in run['census'])} B != schedule "
+                                 f"{sched.n_rounds} / {sched.bytes_tx}")
+        if not torch.equal(run["block"], want_blocks[at]):
+            raise AssertionError(f"mesh {what} {name} rank at {at}: shares differ "
+                                 "from the SimComm call's")
+    counts = res[0]["runs"][name]["launches"]
+    if {k: counts[k] for k in launches_want} != launches_want or \
+            {k for k in launches_want if counts[k]} != PATH_KERNELS[name] or \
+            counts["pack_ring_masked"] != counts["pack_ring"]:
+        raise AssertionError(f"mesh {what} {name}: rank 0 launched {counts}, the "
+                             f"plan says {launches_want}")
+    return counts
+
+
+def mesh_phase(s, sim, socket):
+    """Two-party device execution on the one card: (a) the smoke mesh, (b)
+    the party axis of size 2 as two spawned gloo ranks (each party's wall
+    beside the deploy phase's socket parties', ``socket``: its (b)
+    record), (c) the (2, 2) data-axis mesh as four, (d) (b)'s two ranks,
+    their gloo group left, asking for NCCL on the one card.  Returns the
+    record and rank 0's launches per kernel over (b) and (c)."""
+    from repro_torch import api
+    from repro_torch.core import beaver, fixed, prng
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.models import resnet
+
+    script = os.path.abspath(__file__)
+    x_cpu = s["X"].data.cpu()
+    stamps, t0 = {}, time.perf_counter()
+    rec = {"smoke": _mesh_smoke(s, sim)}
+    stamps["smoke_s"] = time.perf_counter() - t0
+    total = {k: 0 for k in SHAPE_KERNELS}
+
+    t0 = time.perf_counter()
+    two = spawn_local(script, "mesh_rank", 2,
+                      args=(s["plans"], DEPLOY_PLANS, x_cpu, True), timeout_s=MESH_WAIT_S)
+    stamps["two_ranks_s"] = time.perf_counter() - t0
+    rec["two_ranks"] = {}
+    for name in DEPLOY_PLANS:
+        want = sim[name]["out"].data.cpu()
+        sched = s["plans"][name].schedule()
+        counts = _mesh_ranks_check("(b)", name, two, sched,
+                                   {(p, 0): want[p:p + 1] for p in (0, 1)},
+                                   deploy_party_launches(s["plans"][name]))
+        if not torch.equal(two[0]["runs"][name]["gathered"], want):
+            raise AssertionError(f"mesh (b) {name}: the gathered shares differ from "
+                                 "the SimComm call's")
+        for k in SHAPE_KERNELS:
+            total[k] += counts.get(k, 0)
+        walls = [r["runs"][name]["wall_s"] for r in two]
+        med = [statistics.median(w) for w in walls]
+        sock = socket[name]["party_wall_s"]
+        rec["two_ranks"][name] = {"party_wall_s": walls, "party_median_s": med,
+                                  "rounds": sched.n_rounds,
+                                  "bytes_per_party": sched.bytes_tx,
+                                  "launches_rank0": counts,
+                                  "sim_wall_s": sim[name]["wall"],
+                                  "socket_party_wall_s": sock}
+        print(f"mesh (b) {name}: two gloo ranks on the card, median "
+              f"{med[0]:.4f} / {med[1]:.4f} s a party over {MESH_CALLS} warm calls "
+              f"(party 0 min {min(walls[0]):.4f}, max {max(walls[0]):.4f}; party 1 "
+              f"min {min(walls[1]):.4f}, max {max(walls[1]):.4f}) for "
+              f"{sched.n_rounds} exchanges / {sched.bytes_tx} B a party staged "
+              f"through pinned host memory ({sched.bytes_tx / 1e6 / max(med):.1f} "
+              f"MB/s a direction at the slower median), beside the deploy phase's "
+              f"socket parties' {sock[0]:.3f} / {sock[1]:.3f} s and SimComm's "
+              f"{sim[name]['wall']:.3f} s; census == the schedule on both ranks; "
+              f"gathered shares equal SimComm's; rank 0's launches as the plan "
+              f"says", flush=True)
+
+    t0 = time.perf_counter()
+    name, plan = "reduced", s["plans"]["reduced"]
+    per = DEPLOY_BATCH // MESH_DATA
+    plan_shard = resnet.trace(resnet.init(s["cfg"], seed=0, device="meta"), s["cfg"],
+                              batch=per, hb=plan.hb)
+    shard_sched, full_sched = plan_shard.schedule(), plan.schedule()
+    if shard_sched.n_rounds != full_sched.n_rounds or \
+            MESH_DATA * shard_sched.bytes_tx != full_sched.bytes_tx:
+        raise AssertionError(f"mesh (c): a shard's schedule {shard_sched.n_rounds} / "
+                             f"{shard_sched.bytes_tx} against {full_sched.n_rounds} / "
+                             f"{full_sched.bytes_tx} unsharded")
+    four = spawn_local(script, "mesh_rank", 2 * MESH_DATA,
+                       args=(s["plans"], (name,), x_cpu), timeout_s=MESH_WAIT_S)
+    stamps["data_ranks_s"] = time.perf_counter() - t0
+    os.environ["HB_ROUND_LOOP"] = "python"
+    shard_want = {}
+    for d in range(MESH_DATA):
+        model = api.compile(_deploy_afn(s["cfg"]), s["params"], s["cfg"], plan,
+                            api.Session(key=0, device="cuda", provider=beaver.TriplePool(
+                                s["pools"][name]).shard(d, MESH_DATA)))
+        out = model.serve_step()(s["params"], s["X"].data[:, d * per:(d + 1) * per],
+                                 None, prng.PRNGKey(4, "cuda")).cpu()
+        shard_want.update({(p, d): out[p:p + 1] for p in (0, 1)})
+    os.environ.pop("HB_ROUND_LOOP", None)
+    launches_want = {k: sum(v.values()) for k, v in
+                     resnet_shape_launches(plan_shard, streams=1, batch=1).items()}
+    counts = _mesh_ranks_check("(c)", name, four, shard_sched, shard_want, launches_want)
+    for k in SHAPE_KERNELS:
+        total[k] += counts.get(k, 0)
+    gathered = four[0]["runs"][name]["gathered"]
+    full = sim[name]["out"].data.cpu()
+    err = float((fixed.decode(gathered[0] + gathered[1])
+                 - fixed.decode(full[0] + full[1])).abs().max())
+    if gathered.shape != full.shape or not err <= MESH_REVEAL_ATOL:
+        raise AssertionError(f"mesh (c): the sharded reveal differs from the "
+                             f"unsharded call's by {err} (limit {MESH_REVEAL_ATOL})")
+    walls = [statistics.median(r["runs"][name]["wall_s"]) for r in four]
+    rec["data_ranks"] = {"shape": (2, MESH_DATA), "party_wall_s":
+                         [r["runs"][name]["wall_s"] for r in four],
+                         "party_median_s": walls,
+                         "rounds": shard_sched.n_rounds,
+                         "bytes_per_shard_party": shard_sched.bytes_tx,
+                         "reveal_max_diff": err, "launches_rank0": counts}
+    print(f"mesh (c) {name}: a (2, {MESH_DATA}) mesh of {2 * MESH_DATA} gloo ranks, "
+          f"median walls {', '.join(f'{w:.4f}' for w in walls)} s over "
+          f"{MESH_CALLS} warm calls; every shard's census "
+          f"{shard_sched.n_rounds} exchanges / {shard_sched.bytes_tx} B == the "
+          f"schedule at batch {per} (unsharded {full_sched.bytes_tx} B); shares equal "
+          f"the SimComm step on each shard's rows with TriplePool.shard; reveal "
+          f"within {err:.3g} of the unsharded call's (limit {MESH_REVEAL_ATOL:.4g})",
+          flush=True)
+
+    probe = [r["nccl_probe"] for r in two]
+    if not all(p["check"] for p in probe):
+        raise AssertionError(f"mesh (d): make_mpc_mesh(backend='nccl') took two ranks "
+                             f"on one card: {probe}")
+    rec["nccl_probe"] = probe
+    print(f"mesh (d) two NCCL ranks on one card: make_mpc_mesh raised "
+          f"{probe[0]['check']!r}; NCCL itself: {probe[0]['nccl'][:400]!r}", flush=True)
+    rec["parts_s"] = stamps
+    print(f"mesh phase parts: {json.dumps(stamps)}", flush=True)
+    return rec, total
+
+
+def mesh_kernel_phase():
+    """The mesh path's kernel shapes that no earlier phase holds, against
+    their plain versions (``party_kernel_rows``, records on path "mesh"):
+    the ReLU kernels at a data shard's P = 1 shapes (the reduced plan at
+    batch DEPLOY_BATCH / MESH_DATA: the stem at W = 4096 words), and
+    ring_matmul at the smoke mesh's P = 2 rows of DEPLOY_BATCH images."""
+    from repro_torch.configs import RESNET18
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.models import resnet
+
+    params = resnet.init(RESNET18, seed=0, device="meta")
+    shard = resnet.trace(params, RESNET18, batch=DEPLOY_BATCH // MESH_DATA)
+    shard = shard.with_hb(HBConfig(
+        tuple([HBLayer(k=21, m=13)] * (shard.n_groups - 1) + [HBLayer(k=13, m=13)]),
+        shard.group_elements))
+    shapes = {k: set(v) for k, v in
+              resnet_shape_launches(shard, streams=1, batch=1).items()}
+    shapes["ring_matmul"] = set(resnet_shape_launches(
+        shard, streams=1, batch=DEPLOY_BATCH)["ring_matmul"])
+    rows, checked = party_kernel_rows(shapes, "mesh", rm_label=f"P = 2, batch "
+                                                           f"{DEPLOY_BATCH}")
+    print(f"mesh kernels: {checked} launches at the mesh path's new shapes equal "
+          f"their plain versions, {len(rows)} timed", flush=True)
     return rows
 
 
@@ -3214,14 +3616,18 @@ def main() -> None:
     served_lm, serve_lm_launches = _phase("serve-lm", serve_lm_phase, lm)
     front, front_launches = _phase("frontend", frontend_phase)
     seed_oracle, seed_launches = _phase("seed-oracle", seed_oracle_phase)
-    deploy, deploy_launches = _phase("deploy", deploy_phase)
+    deploy, deploy_launches, deploy_s, deploy_sim = _phase("deploy", deploy_phase)
     deploy_rows = _phase("deploy-kernels", deploy_kernel_phase)
+    mesh, mesh_launches = _phase("mesh", mesh_phase, deploy_s, deploy_sim,
+                                 deploy["threads"])
+    del deploy_s, deploy_sim
+    mesh_rows = _phase("mesh-kernels", mesh_kernel_phase)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
                          ("frontend", front_launches), ("seed-oracle", seed_launches),
-                         ("deploy", deploy_launches)):
+                         ("deploy", deploy_launches), ("mesh", mesh_launches)):
         for k in SHAPE_KERNELS:
             launches.setdefault(k, {})[path] = counts.get(k, 0)
-    extra += serve_rows + deploy_rows
+    extra += serve_rows + deploy_rows + mesh_rows
     search["per_call_sums"]["ring_matmul"] = next(
         r["per_call_sums"] for r in rows + extra
         if r["name"] == "ring_matmul" and "per_call_sums" in r)
@@ -3244,7 +3650,7 @@ def main() -> None:
                    "merge": merge,
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
-                   "seed_oracle": seed_oracle, "deploy": deploy,
+                   "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
                    "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

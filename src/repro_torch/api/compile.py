@@ -480,30 +480,118 @@ class PrivateModel:
                 "n_rounds": entry.comm.n_rounds, "launches": dict(entry.launches)}
 
     # -- serving step -----------------------------------------------------------
-    def serve_step(self, mesh=None) -> Callable:
+    def serve_step(self, mesh=None, *, party_axis: str = "party",
+                   data_axis: Optional[str] = None) -> Callable:
         """step(params, x, triples, key) -> x_out: the replay of one input
-        ``x`` (the int64 (2, B, ...) share tensor), on the session's comm,
-        with ``triples`` (one bundle or None per ReLU call, see
-        ``Plan.triple_specs``) as the pool, or the session's provider when
-        None.  A mesh (two-party device execution) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serve_step(mesh): two-party device execution is not ported "
-                "yet (ROADMAP queue 1, item 8)")
+        ``x``, the int64 (2, B, ...) share tensor, with ``triples`` (one
+        bundle or None per ReLU call, see ``Plan.triple_specs``) as the
+        pool.
 
-        def step(params, x, triples, key):
-            provider = (beaver.TriplePool(triples) if triples is not None
-                        else self.session.provider)
-            return self._run([MPCTensor(x)], key, self.session.comm, provider,
-                             params)[0].data
+        With ``mesh=None`` the replay runs on the session's comm with the
+        party dimension materialised, from ``triples`` or, when None, the
+        session's provider.
 
-        return step
+        With a mesh (``launch.mesh``) carrying ``party_axis``, the step is
+        mesh-native, as the reference's is under ``shard_map``: every rank
+        of the mesh calls it with the same global arguments, takes its own
+        block (its party rows of ``x``, and of every pool leaf at the
+        position ``beaver.pool_party_specs`` gives), runs the replay under
+        ``CoalescingComm(MeshComm(...))``, so every fused protocol round is
+        exactly ONE exchange, and returns its block of the output
+        (``mesh.gather(out, step.spec)`` assembles the global tensor).
+        The step keeps the last call's comm as ``step.comm``, whose
+        counters must equal ``plan.schedule()`` round for round;
+        ``step.census`` is its ``MeshComm``'s census of the exchanges it
+        made, which must too, except on the captured replay of a party
+        axis of size 1: the graph holds those flips, and the census stays
+        empty.  The party axis has size 2
+        (one rank per party) or 1 (``make_mpc_smoke_mesh``: both parties in
+        this process, the exchanges local flips).  The mesh path needs an
+        explicit triple pool: an inline provider would have to conjure
+        cross-party randomness inside one party's rank.
 
-    def jit_step(self, mesh=None) -> Callable:
-        """``serve_step`` built once per mesh.  On the default ``scan``
-        round loop (``runtime/loop.py``) its inner replay runs through the
-        cached captured graph: providers draw outside it, and the online
-        phase is one graph replay."""
-        if mesh not in self._step_cache:
-            self._step_cache[mesh] = self.serve_step(mesh)
-        return self._step_cache[mesh]
+        With ``data_axis``, the request batch is split over that mesh axis
+        too: ``x``'s batch dimension is split, ``triples`` must be
+        ``beaver.shard_pool(pool, mesh.shape[data_axis])`` (each leaf with
+        a leading data-shard dimension holding that shard's bit-level
+        element slice), and every data shard runs its own party-axis
+        protocol on its batch rows: the same rounds, per-shard bytes, and
+        a reveal equal to the unsharded replay's within the truncation's
+        error.
+        """
+        if mesh is None:
+            def step(params, x, triples, key):
+                provider = (beaver.TriplePool(triples) if triples is not None
+                            else self.session.provider)
+                return self._run([MPCTensor(x)], key, self.session.comm, provider,
+                                 params)[0].data
+
+            return step
+        if party_axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} carry no {party_axis!r} axis")
+        if data_axis is not None and data_axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} carry no {data_axis!r} axis")
+        return _MeshStep(self, mesh, party_axis, data_axis)
+
+    def jit_step(self, mesh=None, *, party_axis: str = "party",
+                 data_axis: Optional[str] = None) -> Callable:
+        """``serve_step`` built once per (mesh, party_axis, data_axis).
+        On the default ``scan`` round loop (``runtime/loop.py``) the inner
+        replay of ``mesh=None`` and of a party axis of size 1 runs through
+        the cached captured graph: providers draw outside it, and the
+        online phase is one graph replay.  A party axis of size 2 runs the
+        generator loop: its exchanges go through a process group, and a
+        gloo exchange (host staging, a blocking wait) cannot sit in a CUDA
+        graph."""
+        cache_key = (mesh, party_axis, data_axis)
+        if cache_key not in self._step_cache:
+            self._step_cache[cache_key] = self.serve_step(
+                mesh, party_axis=party_axis, data_axis=data_axis)
+        return self._step_cache[cache_key]
+
+
+class _MeshStep:
+    """``PrivateModel.serve_step(mesh)``: one rank's mesh-native step (see
+    there).  ``spec`` is the partition of the input and output share
+    tensors: ``(party_axis, data_axis)``, or ``(party_axis,)``."""
+
+    def __init__(self, model: PrivateModel, mesh, party_axis: str,
+                 data_axis: Optional[str]):
+        self.model = model
+        self.mesh = mesh
+        self.party_axis = party_axis
+        self.data_axis = data_axis
+        self.spec = (party_axis, data_axis) if data_axis else (party_axis,)
+        self.comm: Optional[comm_lib.CoalescingComm] = None
+
+    @property
+    def census(self) -> List[comm_lib.Collective]:
+        """The last call's exchanges handed to its ``MeshComm``, one entry
+        each (none on a captured replay)."""
+        return self.comm.base.census if self.comm is not None else []
+
+    def _local_pool(self, triples) -> List:
+        """This rank's block of every pool leaf (party rows at the
+        structural party position; with a data axis, its own shard of the
+        leading data-shard dimension, which is then dropped)."""
+        mesh, data_axis = self.mesh, self.data_axis
+        specs = beaver.pool_party_specs(triples, self.party_axis, data_axis=data_axis)
+
+        def block(leaf, spec):
+            leaf = mesh.local_block(leaf, spec)
+            return leaf[0] if data_axis is not None else leaf
+
+        return [None if b is None else beaver.map_bundle(block, b, sp)
+                for b, sp in zip(triples, specs)]
+
+    def __call__(self, params, x: torch.Tensor, triples, key) -> torch.Tensor:
+        if triples is None:
+            raise ValueError("mesh-native serve_step needs an offline triple pool "
+                             "(beaver.gen_plan_triples(key, plan.triple_specs()))")
+        mesh = self.mesh
+        self.comm = comm_lib.CoalescingComm(comm_lib.MeshComm(
+            self.party_axis, mesh.shape[self.party_axis], mesh=mesh))
+        x_local = mesh.local_block(x, self.spec)
+        return self.model._run([MPCTensor(x_local)], key, self.comm,
+                               beaver.TriplePool(self._local_pool(triples)),
+                               params)[0].data

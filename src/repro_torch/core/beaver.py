@@ -190,30 +190,129 @@ def gen_plan_triples(key: torch.Tensor, specs: Sequence[Tuple[int, int]],
             for k, (n, w) in zip(keys, specs)]
 
 
+def map_bundle(fn, bundle: ReluTriples, *others: ReluTriples) -> ReluTriples:
+    """A bundle of ``bundle``'s structure with ``fn(leaf, *other_leaves)``
+    at every member field (``others``: bundles, or spec trees, of the same
+    structure)."""
+    def tri(t, *o):
+        return type(t)(*(fn(getattr(t, f), *(getattr(x, f) for x in o))
+                         for f in ("a", "b", "c")))
+
+    if isinstance(bundle.bin_levels, tuple):         # cone: ragged per level
+        levels = tuple(tri(t, *(o.bin_levels[i] for o in others))
+                       for i, t in enumerate(bundle.bin_levels))
+    else:                                            # dense: (L, P, 2w, W)
+        levels = tri(bundle.bin_levels, *(o.bin_levels for o in others))
+    return ReluTriples(tri(bundle.bin_init, *(o.bin_init for o in others)), levels,
+                       tri(bundle.b2a, *(o.b2a for o in others)),
+                       tri(bundle.mult, *(o.mult for o in others)))
+
+
+def shard_relu_triples(bundle: ReluTriples, data_index: int,
+                       n_shards: int) -> ReluTriples:
+    """One data shard's element-axis slice of a ReluTriples bundle, bit for
+    bit the reference's ``shard_relu_triples``.
+
+    The inverse direction of ``concat_relu_triples``: the party dimension
+    is untouched, arithmetic members (int64) slice the element axis, and
+    packed binary members (int32 words) are split at the bit level, since
+    word boundaries shift when the per-shard element count is not a
+    multiple of 32 (unpack to the E element bits, slice, repack; the words
+    themselves are sliced when both ends fall on a word boundary, which
+    gives the same words).  Every member comes out contiguous, as the
+    kernels take them.  Shard i of n runs the protocol on batch rows
+    [i*B/n, (i+1)*B/n) with exactly these triples."""
+    E = bundle.b2a.a.shape[-1]
+    if E % n_shards:
+        raise ValueError(f"shard_relu_triples: {E} elements not divisible by "
+                         f"{n_shards} data shards")
+    per = E // n_shards
+    lo_el, hi_el = data_index * per, (data_index + 1) * per
+
+    def sl(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.dtype == torch.int64:
+            return leaf[..., lo_el:hi_el].contiguous()
+        if lo_el % 32 == 0 and per % 32 == 0:
+            return leaf[..., lo_el // 32:hi_el // 32].contiguous()
+        return shares.pack_bits(shares.unpack_bits(leaf, E)[..., lo_el:hi_el])
+
+    return map_bundle(sl, bundle)
+
+
+def shard_pool(pool: Sequence[Optional[ReluTriples]],
+               n_shards: int) -> List[Optional[ReluTriples]]:
+    """Every bundle's per-data-shard slices stacked on a NEW leading axis:
+    the pool's structure, each leaf with a leading ``n_shards`` dimension
+    holding that shard's element slice (the reference's ``shard_pool``).
+    ``PrivateModel.serve_step(mesh, data_axis=...)`` takes it as its
+    ``triples``: each data shard keeps its own index of that dimension,
+    and the party dimension sits where ``pool_party_specs`` says."""
+
+    def stack(bundle):
+        if bundle is None:
+            return None
+        slices = [shard_relu_triples(bundle, i, n_shards) for i in range(n_shards)]
+        return map_bundle(lambda *xs: torch.stack(xs), *slices)
+
+    return [stack(b) for b in pool]
+
+
+def pool_party_specs(pool: Sequence[Optional[ReluTriples]],
+                     party_axis: str = "party",
+                     data_axis: Optional[str] = None) -> List[Optional[ReluTriples]]:
+    """Each pool leaf's partition over the mesh: the reference's
+    ``PartitionSpec`` entries, as a tuple per leaf (one mesh axis name or
+    None per dimension), in a tree of the pool's structure.
+
+    The party dimension's position is fixed by each member's structure,
+    never guessed from its shape: leading for ``bin_init``, the arithmetic
+    members and the cone's per-level triples; dim 1 (behind the stacked L
+    axis) for the dense ``bin_levels``.  With ``data_axis`` the pool is
+    ``shard_pool``'s layout: every leaf gained a leading data-shard
+    dimension, so the data axis is dim 0 and the party positions shift one
+    to the right."""
+    off = 0 if data_axis is None else 1
+
+    def at(party_dim: int):
+        def spec(leaf):
+            s = [None] * leaf.ndim
+            s[party_dim + off] = party_axis
+            if data_axis is not None:
+                s[0] = data_axis
+            return tuple(s)
+        return lambda t: type(t)(*(spec(getattr(t, f)) for f in ("a", "b", "c")))
+
+    def bundle_specs(bundle):
+        if bundle is None:               # culled / empty call: no triples
+            return None
+        if isinstance(bundle.bin_levels, tuple):    # cone: ragged per level
+            levels = tuple(at(0)(t) for t in bundle.bin_levels)
+        else:                                       # dense: (L, P, 2w, W)
+            levels = at(1)(bundle.bin_levels)
+        return ReluTriples(at(0)(bundle.bin_init), levels,
+                           at(0)(bundle.b2a), at(0)(bundle.mult))
+
+    return [bundle_specs(b) for b in pool]
+
+
 def slice_party_bundle(bundle: Optional[ReluTriples],
                        party: int) -> Optional[ReluTriples]:
-    """One party's rows of a full 2-party ``ReluTriples`` bundle.
-
-    The party dimension leads every member but the dense ``bin_levels``
-    stack, (L, P, 2w, W), where it is dim 1; the slice keeps the dimension
-    with size 1, the local layout of a per-process transport backend
-    (``transport.SocketComm``).  Generate the full bundle from a key both
-    parties share, slice to your own index, and the two processes hold a
+    """One party's rows of a full 2-party ``ReluTriples`` bundle, at the
+    party positions ``pool_party_specs`` gives; the slice keeps the
+    dimension with size 1, the local layout of a per-process transport
+    backend (``transport.SocketComm``) and of a size-2 party axis
+    (``MeshComm``).  Generate the full bundle from a key both parties
+    share, slice to your own index, and the two processes hold a
     consistent triple.
     """
     if bundle is None:
         return None
 
-    def at(party_dim: int, triple):
-        idx = (slice(None),) * party_dim + (slice(party, party + 1),)
-        return type(triple)(*(getattr(triple, f)[idx] for f in ("a", "b", "c")))
+    def at(leaf: torch.Tensor, spec) -> torch.Tensor:
+        d = spec.index("party")
+        return leaf[(slice(None),) * d + (slice(party, party + 1),)]
 
-    if isinstance(bundle.bin_levels, BinTriple):     # dense: (L, P, 2w, W)
-        levels = at(1, bundle.bin_levels)
-    else:                                            # cone: ragged per level
-        levels = tuple(at(0, t) for t in bundle.bin_levels)
-    return ReluTriples(at(0, bundle.bin_init), levels,
-                       at(0, bundle.b2a), at(0, bundle.mult))
+    return map_bundle(at, bundle, pool_party_specs([bundle])[0])
 
 
 def slice_party_pool(pool: Sequence[Optional[ReluTriples]],
@@ -344,6 +443,15 @@ class TriplePool:
 
     def rollback(self, token: int) -> None:
         self.consumed = token
+
+    def shard(self, data_index: int, n_shards: int) -> "TriplePool":
+        """Data shard ``data_index``'s pool: every bundle not yet consumed,
+        sliced on the element axis (``shard_relu_triples``).  This pool is
+        left as it is, so one call per shard index gives ``n_shards`` pools
+        that together cover exactly the unsharded replay."""
+        return TriplePool([
+            None if b is None else shard_relu_triples(b, data_index, n_shards)
+            for b in self._bundles[self.consumed:]])
 
     def device_bytes(self) -> int:
         """Bytes the pool's tensors hold (the offline artifact's size)."""

@@ -1,7 +1,7 @@
-"""Party communicator: simulation backend plus counting, coalescing and
-resilient wrappers (twins of ``SimComm``, ``CountingComm``,
-``CoalescingComm`` and ``ResilientComm`` in the reference's
-``core/comm.py``).
+"""Party communicator: simulation and mesh backends plus counting,
+coalescing and resilient wrappers (twins of ``SimComm``, ``MeshComm``,
+``CountingComm``, ``CoalescingComm`` and ``ResilientComm`` in the
+reference's ``core/comm.py``).
 
 Protocol code works on tensors with a leading party dimension.  A payload
 is one tensor, of one of two dtypes:
@@ -23,10 +23,12 @@ buffer's device.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import errors
 from .schedule import FRAME_WORDS
@@ -74,6 +76,95 @@ class SimComm:
     def party_slice(self, full: torch.Tensor) -> torch.Tensor:
         """Each party's rows of a full-party-dim array: all of them here."""
         return full
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One census entry: ``count`` exchanges of ``bytes`` per-party
+    one-direction payload bytes (the reference's HLO census entry)."""
+
+    count: int
+    bytes: int
+
+
+class MeshComm:
+    """Mesh backend: the party dimension split over a mesh axis of ranks
+    (``launch.mesh.Mesh``), twin of the reference's ``MeshComm``.
+
+    The global party dimension (size ``n_parties`` = 2) is split over the
+    mesh axis ``axis_name`` of size ``axis_size``, so this rank holds a
+    local party dimension of ``n_parties // axis_size`` rows:
+
+    - ``axis_size == 2`` (one rank per non-colluding server): local party
+      dim 1; ``swap`` is ONE ``dist.batch_isend_irecv`` pair (send this
+      rank's rows, receive the peer's) on the mesh's party subgroup.  On a
+      ``gloo`` mesh the payload is staged through host memory (pinned for
+      a CUDA payload), explicitly; on ``nccl`` the device tensor goes as
+      it is;
+    - ``axis_size == 1`` (``make_mpc_smoke_mesh``): both parties in this
+      process (local party dim 2); the exchange is the local flip.
+
+    ``census`` holds one ``Collective(1, bytes)`` per exchange handed to
+    ``swap``, local or not (the port's counterpart of the reference's HLO
+    collective census), so ``CoalescingComm`` over a ``MeshComm`` base must
+    leave exactly one entry per fused round, with the round's bytes.  A
+    captured replay (``runtime/loop.py``) holds its local flips in its
+    graph and hands this comm none.
+    """
+
+    n_parties = 2
+
+    def __init__(self, axis_name: str = "party", axis_size: int = 2, mesh=None):
+        if self.n_parties % axis_size:
+            raise ValueError(
+                f"party axis size {axis_size} must divide {self.n_parties}")
+        if axis_size > 1 and mesh is None:
+            raise ValueError(f"a party axis of size {axis_size} needs its mesh")
+        self.axis_name = axis_name
+        self.axis_size = axis_size
+        self.local_parties = self.n_parties // axis_size
+        self.mesh = mesh
+        self.party = mesh.coords[axis_name] if axis_size > 1 else 0
+        self.census: List[Collective] = []
+
+    def swap(self, x: torch.Tensor) -> torch.Tensor:
+        """Global party flip: local party-dim flip, or the exchange with
+        the peer rank across the mesh."""
+        if x.shape[0] != self.local_parties:
+            raise ValueError(f"payload of shape {tuple(x.shape)}: this rank holds "
+                             f"{self.local_parties} party rows")
+        out = torch.flip(x, dims=(0,)) if self.axis_size == 1 else self._exchange(x)
+        self.census.append(Collective(1, payload_bytes(x)))
+        return out
+
+    def _exchange(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        peer = mesh.rank_at(**{self.axis_name: 1 - self.party})
+        group = mesh.groups[self.axis_name]
+        stage = mesh.backend == "gloo" and x.device.type != "cpu"
+        if stage:
+            tx = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            tx.copy_(x)
+        else:
+            tx = x.contiguous()
+        rx = torch.empty_like(tx)
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, tx, peer, group),
+                                       dist.P2POp(dist.irecv, rx, peer, group)])
+        for req in reqs:
+            req.wait()
+        return rx.to(x.device) if stage else rx
+
+    def party_is(self, p: int, template: torch.Tensor) -> torch.Tensor:
+        if self.local_parties == self.n_parties:
+            return SimComm.party_is(self, p, template)
+        return torch.full((1,) * max(1, template.ndim), p == self.party,
+                          dtype=torch.bool, device=template.device)
+
+    def party_slice(self, full: torch.Tensor) -> torch.Tensor:
+        """Local party rows of a full-party-dim (n_parties, ...) tensor."""
+        if self.local_parties == self.n_parties:
+            return full
+        return full[self.party:self.party + 1]
 
 
 class CountingComm:

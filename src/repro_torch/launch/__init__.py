@@ -1,1 +1,2 @@
-"""Launchers: the party host of a two-process deployment."""
+"""Launchers: the party host of a two-process deployment, the MPC meshes
+over ``torch.distributed`` and the MPC serving step."""

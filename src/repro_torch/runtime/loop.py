@@ -23,8 +23,12 @@ Backend choice:
 Eligibility: the replay bakes the exchange into the graph, so the comm
 stack must be pure compute with no per-round Python side effects: exactly
 ``SimComm`` (a local flip) or ``CoalescingComm`` directly over ``SimComm``
-(its Python counters fill once, during the capture, and are replayed onto
-the caller's comm by ``api/compile.py``).  ``CountingComm`` and any
+or over a ``MeshComm`` whose party axis has size 1 (the smoke mesh: the
+same local flip; its Python counters fill once, during the capture, and
+are replayed onto the caller's comm by ``api/compile.py``).  A
+``MeshComm`` over a party axis of size 2 exchanges through a process
+group, which a CUDA graph cannot hold across gloo's host staging, so the
+mesh step runs the generator loop there.  ``CountingComm`` and any
 subclass must observe every round from Python, so they stay on the
 generator loop.
 """
@@ -47,11 +51,15 @@ def round_loop_mode() -> str:
 
 def compiled_eligible(comm) -> bool:
     """True iff the whole replay may run as one captured program on this
-    comm backend: exactly SimComm, or CoalescingComm directly over SimComm.
-    Subclasses do not qualify: a wrapper that adds per-round Python
-    behaviour (counters, framing) must see every round, which a replay
-    never re-enters Python for."""
+    comm backend: exactly SimComm, or CoalescingComm directly over SimComm
+    or over a MeshComm with a party axis of size 1.  Subclasses do not
+    qualify: a wrapper that adds per-round Python behaviour (counters,
+    framing) must see every round, which a replay never re-enters Python
+    for."""
     if type(comm) is comm_lib.SimComm:
         return True
-    return (type(comm) is comm_lib.CoalescingComm
-            and type(comm.base) is comm_lib.SimComm)
+    if type(comm) is not comm_lib.CoalescingComm:
+        return False
+    base = comm.base
+    return type(base) is comm_lib.SimComm or (
+        type(base) is comm_lib.MeshComm and base.axis_size == 1)

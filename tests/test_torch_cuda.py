@@ -884,3 +884,56 @@ def test_cuda_two_party_threads_equal_simcomm(monkeypatch):
         assert comm_lib.find_resilient(sess.comm).round_bytes == \
             list(framed.round_bytes)
         sess.transport.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["python", "scan"])
+def test_cuda_smoke_mesh_step_equals_serve_step(mode, monkeypatch):
+    """RESNET_SMOKE's reduced plan through ``jit_step`` on the smoke mesh
+    (party axis of size 1: ``CoalescingComm(MeshComm)``, local flips), with
+    and without the data axis (``shard_pool(pool, 1)``), on the card: bit
+    for bit ``serve_step(None)`` on the card and the CPU run, on either
+    round loop (``scan``: the captured replay), its counters the schedule
+    round for round, and so its census on the generator loop (the replay's
+    graph holds the flips: its census stays empty)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import api
+    from repro_torch.configs import RESNET_SMOKE
+    from repro_torch.core import beaver, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.launch.mesh import make_mpc_smoke_mesh
+    from repro_torch.models import resnet
+
+    monkeypatch.setenv("HB_ROUND_LOOP", mode)
+    params = resnet.init(RESNET_SMOKE, seed=0, device="cpu")
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, RESNET_SMOKE, relu_fn=relu_fn)
+
+    plan = api.trace_plan(afn, params, (2, 3, 8, 8), name="smoke")
+    plan = plan.with_hb(api.HBConfig(
+        tuple([api.HBLayer(k=21, m=13)] * (plan.n_groups - 1)
+              + [api.HBLayer(k=13, m=13)]), plan.group_elements))
+    sched = plan.schedule()
+
+    def run(device):
+        p = resnet._map_paths(lambda _, t: t.to(device), params)
+        x = torch.randn((2, 3, 8, 8), generator=torch.Generator().manual_seed(1)) * 0.5
+        X = MPCTensor.from_plain(prng.PRNGKey(2, device), x.to(device))
+        pool = beaver.gen_plan_triples(prng.PRNGKey(3, device), plan.triple_specs())
+        model = api.compile(afn, p, RESNET_SMOKE, plan, api.Session(key=0, device=device))
+        key = prng.PRNGKey(4, device)
+        want = model.serve_step()(p, X.data, pool, key)
+        mesh = make_mpc_smoke_mesh(device)
+        for data_axis, triples in ((None, pool), ("data", beaver.shard_pool(pool, 1))):
+            step = model.jit_step(mesh, data_axis=data_axis)
+            for _ in range(2):
+                got = step(p, X.data, triples, key)
+                assert torch.equal(got, want)
+                assert step.comm.round_bytes == list(sched.round_bytes)
+                assert [(c.count, c.bytes) for c in step.census] == (
+                    [(1, b) for b in sched.round_bytes] if mode == "python" else [])
+        return want
+
+    assert torch.equal(run("cuda").cpu(), run("cpu"))

@@ -18,6 +18,7 @@ from repro_torch import api as tapi, errors
 from repro_torch.api.compile import replay_cache_stats
 from repro_torch.configs import RESNET_SMOKE as TSMOKE
 from repro_torch.core import beaver, comm as tcomm, mpc_tensor as tmpc, prng, ring as tring
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import resnet as tres
 from repro_torch.runtime import loop as loop_lib
 
@@ -229,7 +230,7 @@ def test_ineligible_comm_stays_on_generator_loop(mlp, monkeypatch):
 def test_serve_step(mlp, monkeypatch):
     """``serve_step(None)`` is ``__call__`` on the share tensor, with the
     session's provider or a given pool; ``jit_step`` caches it; a mesh
-    raises."""
+    without a party axis raises the reference's ``ValueError``."""
     w, tplan = mlp
     _, tX = _shares(31)
     model, _ = _port_model(w, tplan, monkeypatch, "scan")
@@ -244,10 +245,10 @@ def test_serve_step(mlp, monkeypatch):
                             provider=beaver.TriplePool(triples))
     assert torch.equal(step(model.params, tX.data, triples, key),
                        pooled(tX, key=key).data)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        model.serve_step(mesh=object())
-    with pytest.raises(NotImplementedError):
-        model.jit_step(mesh=object())
+    with pytest.raises(ValueError, match="carry no 'party' axis"):
+        model.serve_step(mesh=make_smoke_mesh("cpu"))
+    with pytest.raises(ValueError, match="carry no 'party' axis"):
+        model.jit_step(mesh=make_smoke_mesh("cpu"))
 
 
 def _np_resnet_params():

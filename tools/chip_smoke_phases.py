@@ -25,7 +25,7 @@ PHASES = ("lm_setup", "kernel_phase", "main_path_phase", "lm_path_phase",
           "lm_relu_phase", "ragged_merge_phase", "merge_phase",
           "stem_breakdown_phase", "search_phase", "serve_phase",
           "serve_lm_phase", "frontend_phase", "seed_oracle_phase",
-          "deploy_phase", "deploy_kernel_phase")
+          "deploy_phase", "deploy_kernel_phase", "mesh_phase", "mesh_kernel_phase")
 
 
 def main() -> None:

@@ -209,7 +209,21 @@ Phases (any failure raises, and the script exits non-zero):
    shapes and ring_matmul at the smoke mesh's rows, against their plain
    versions (records on path "mesh").  Every spawned run is bounded
    (``MESH_WAIT_S``); the kernels are built here before any rank starts,
-   and ranks only load them.
+   and ranks only load them;
+16. analysis: the protocol-safety gate (``repro_torch.analysis``): lint
+   R001-R006 and the lock checks (L001, L002) over the port's files, the
+   number of findings printed, none outside
+   ``tools/hbcheck_torch_baseline.json`` allowed; then the leakage census
+   over the comm seam on the deploy phase's setup (full-width ResNet-18,
+   one input of batch 4, exact and reduced, the ``SimComm`` generator
+   loop's ``serve_step``): each plan's call run as given, with fresh input
+   shares, and with a fresh pool and key (one more such run only if an
+   element is suspect), every wire element classed; zero unmasked rounds,
+   the input moving from round 1 on (round 0 holds the A2B masks), and
+   rounds and bytes equal to the schedule round for round and to
+   ``ANALYSIS_SCHEDULE`` (170 / 552 599 552 B, 91 / 98 566 144 B a party);
+   each plan's rounds by class printed.  The first run's payloads stay on
+   the card (about 1.1 GB for exact).
 
 Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
@@ -3569,6 +3583,85 @@ def mesh_kernel_phase():
     return rows
 
 
+ANALYSIS_SCHEDULE = {"exact": (170, 552599552), "reduced": (91, 98566144)}
+ANALYSIS_FRESH_SEED = 40
+
+
+def analysis_phase(s):
+    """The protocol-safety gate on the card (phase 16): lint and lock
+    checks over the port's files, then the leakage census of each deploy
+    plan's ``serve_step`` on the deploy setup ``s``."""
+    from repro_torch import api
+    from repro_torch.analysis import census as census_lib, hbcheck, lint, locks
+    from repro_torch.core import beaver, prng
+    from repro_torch.core.mpc_tensor import MPCTensor
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    paths = hbcheck.default_paths(ROOT)
+    findings = lint.lint_paths(paths, root=ROOT) + locks.check_paths(ROOT)
+    baseline = lint.load_baseline(os.path.join(ROOT, hbcheck.DEFAULT_BASELINE))
+    new = [f for f in findings if f.key() not in baseline]
+    lint_s = time.perf_counter() - t0
+    print(f"analysis: lint + locks over {len(paths)} paths: "
+          f"{len(findings)} finding(s), {len(new)} not baselined ({lint_s:.2f} s)",
+          flush=True)
+    if new:
+        raise AssertionError("hbcheck findings:\n" + "\n".join(map(str, new)))
+    cfg = s["cfg"]
+    gen = torch.Generator().manual_seed(ANALYSIS_FRESH_SEED)
+    x_fresh = MPCTensor.from_plain(
+        prng.PRNGKey(ANALYSIS_FRESH_SEED, "cuda"),
+        (torch.rand(tuple(s["X"].shape), generator=gen) * 2 - 1).cuda()).data
+    record = {"lint_findings": len(findings), "lint_s": lint_s, "census": {}}
+    for name in DEPLOY_PLANS:
+        plan = s["plans"][name]
+        model = api.compile(_deploy_afn(cfg), s["params"], cfg, plan,
+                            api.Session(key=0, device="cuda"))
+        pools_s = []
+
+        def masks(i, plan=plan, pools_s=pools_s):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pool = beaver.gen_plan_triples(
+                prng.PRNGKey(ANALYSIS_FRESH_SEED + 10 * i, "cuda"), plan.triple_specs())
+            torch.cuda.synchronize()
+            pools_s.append(time.perf_counter() - t)
+            return pool, prng.PRNGKey(ANALYSIS_FRESH_SEED + 10 * i + 1, "cuda")
+
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        summ = census_lib.serve_step_census(model, s["X"].data, s["pools"][name],
+                                            prng.PRNGKey(4, "cuda"), x_fresh, masks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = summ.pop("rounds")
+        launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        print(f"analysis census {name}: {summ['collectives']} rounds "
+              f"({summ['masked_collectives']} masked, {summ['public_collectives']} "
+              f"public, {summ['unmasked_collectives']} unmasked), {summ['bytes']} B a "
+              f"party; schedule {summ['sched_rounds']} / {summ['sched_bytes']} B; "
+              f"{len(rounds)} x {sum(r.elements for r in rounds)} elements classed "
+              f"in {wall:.2f} s (fresh pools {[round(t, 3) for t in pools_s]} s)",
+              flush=True)
+        # cross_check_ok also holds that some element moved with the input;
+        # round 0 is the first ReLU's A2B masks, so the input moves from 1
+        if summ["unmasked_collectives"] or not summ["cross_check_ok"] or \
+                summ["first_secret_round"] != 1 or \
+                (summ["collectives"], summ["bytes"]) != ANALYSIS_SCHEDULE[name]:
+            raise AssertionError(f"analysis census {name}: {summ}, want zero "
+                                 f"unmasked, the input moving from round 1, "
+                                 f"and {ANALYSIS_SCHEDULE[name]}")
+        record["census"][name] = dict(
+            summ, wall_s=wall, fresh_pool_s=pools_s, launches=launches,
+            elements=sum(r.elements for r in rounds),
+            masked_elements=sum(r.masked for r in rounds))
+        del rounds
+        torch.cuda.empty_cache()
+    return record
+
+
 PHASE_S: dict = {}
 
 
@@ -3620,6 +3713,7 @@ def main() -> None:
     deploy_rows = _phase("deploy-kernels", deploy_kernel_phase)
     mesh, mesh_launches = _phase("mesh", mesh_phase, deploy_s, deploy_sim,
                                  deploy["threads"])
+    analysis = _phase("analysis", analysis_phase, deploy_s)
     del deploy_s, deploy_sim
     mesh_rows = _phase("mesh-kernels", mesh_kernel_phase)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
@@ -3651,6 +3745,7 @@ def main() -> None:
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
                    "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
+                   "analysis": analysis,
                    "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

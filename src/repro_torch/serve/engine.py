@@ -714,6 +714,7 @@ class InferenceEngine:
         with self._lock:
             lats = sorted(l for rep in self.reports for l in rep.sim_latencies_s)
             totals = dict(self._totals)
+            slow = len(self.watchdog.stragglers)
 
         def pct(p: float) -> float:
             if not lats:
@@ -726,5 +727,5 @@ class InferenceEngine:
                                    / max(1, totals["fused_rounds"])),
             "p50_sim_latency_s": pct(0.50),
             "p95_sim_latency_s": pct(0.95),
-            "slow_batches": len(self.watchdog.stragglers),
+            "slow_batches": slow,
         }

@@ -937,3 +937,23 @@ def test_cuda_smoke_mesh_step_equals_serve_step(mode, monkeypatch):
         return want
 
     assert torch.equal(run("cuda").cpu(), run("cpu"))
+
+
+@pytest.mark.cuda
+def test_cuda_leakage_census_equals_cpu():
+    """The leakage census (``analysis.census``) on the card: RESNET_SMOKE's
+    exact and reduced ``serve_step`` at input (2, 3, 8, 8), every wire round
+    classed element by element exactly as on the CPU from the same seeds,
+    zero unmasked rounds, and the rounds and bytes of the schedule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.analysis import census
+    from repro_torch.configs import RESNET_SMOKE
+
+    got = census.resnet_census(RESNET_SMOKE, 2, 8, "cuda", ("exact", "reduced"))
+    want = census.resnet_census(RESNET_SMOKE, 2, 8, "cpu", ("exact", "reduced"))
+    for name in ("exact", "reduced"):
+        s = got[name]
+        assert s["unmasked_collectives"] == 0 and s["cross_check_ok"], s
+        assert s["collectives"] == s["sched_rounds"] > 0
+        assert s["rounds"] == want[name]["rounds"]

@@ -351,7 +351,9 @@ def test_port_imports_neither_jax_nor_reference():
                 "serve/engine.py", "serve/frontend.py", "runtime/watchdog.py",
                 "core/gmw_ref.py", "core/faults.py", "checkpoint/store.py",
                 "transport/socket.py", "transport/job.py",
-                "transport/engine_link.py", "launch/party_host.py"):
+                "transport/engine_link.py", "launch/party_host.py",
+                "analysis/lint.py", "analysis/locks.py", "analysis/census.py",
+                "analysis/hbcheck.py", "analysis/__init__.py"):
         assert ROOT / "src" / "repro_torch" / sub in files, sub
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

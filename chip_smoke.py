@@ -223,7 +223,25 @@ Phases (any failure raises, and the script exits non-zero):
    rounds and bytes equal to the schedule round for round and to
    ``ANALYSIS_SCHEDULE`` (170 / 552 599 552 B, 91 / 98 566 144 B a party);
    each plan's rounds by class printed.  The first run's payloads stay on
-   the card (about 1.1 GB for exact).
+   the card (about 1.1 GB for exact);
+17. zoo: the plaintext model zoo's serving path (``launch.serve``'s
+   ``make_prefill_step``, ``greedy_decode_loop`` and ``make_decode_step``
+   over ``models.lm`` / ``models.encdec``; plain torch ops, none of the
+   port's kernels, which the phase checks), seeded weights (``zoo_phase``):
+   (a) Qwen1.5-0.5B at full width and depth in bfloat16, 4 requests of 128
+   tokens prefilled, 32 tokens decoded greedily: prefill wall, the loop's
+   wall and tokens/s, the median synchronized decode step, one decode step
+   under torch.profiler (busy share, device ops), parameter and cache
+   bytes; (b) the same model in float32 on 1 request of 32 tokens and 8
+   decode steps, on the card and on the host's CPU: logits within
+   ``ZOO_F32_TOL``, greedy tokens equal, decode equal to ``apply`` on the
+   fed tokens within ``tests/test_archs_smoke.py``'s tolerance; (c) the
+   nine other architectures at full width, depth cut (``ZOO_DEPTH``),
+   bfloat16: 2 requests of 64 tokens (seamless: 64 stub frames; internvl2:
+   256 stub vision tokens before them), 4 decode steps, finite logits of
+   the reference's shapes, decode against ``apply`` reported, and for the
+   dense and SSM families required on a float32 copy of the same weights.
+   Each time is printed beside the card's name and power limit.
 
 Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
@@ -3662,6 +3680,318 @@ def analysis_phase(s):
     return record
 
 
+# ---------------------------------------------------------------------------
+# zoo: the plaintext model zoo's serving path (no kernel of the port's own)
+# ---------------------------------------------------------------------------
+
+ZOO_ARCH = "qwen1.5-0.5b"
+ZOO_SERVE = (4, 128, 32)        # (a): requests, prompt tokens, greedy tokens
+ZOO_F32 = (1, 32, 8)            # (b): the float32 run, on the card and on the CPU
+# (b): card vs CPU, float32 logits (atol, rtol): the decode steps read each
+# side's own bfloat16 cache, whose K/V can round one ulp apart (4.9e-4 seen)
+ZOO_F32_TOL = (2e-3, 2e-3)
+# decode vs apply in a float32 model: tests/test_archs_smoke.py's tolerance,
+# which covers the bfloat16 cache; a bfloat16 model rounds every op and
+# differs more (0.03-0.11 seen at full width), so (c) checks a float32 copy
+ZOO_DECODE_TOL = (0.03, 0.05)
+ZOO_OTHERS = (2, 64, 4)         # (c): requests, prompt tokens, decode steps
+# (c)'s depth cuts (None: whole); every width as published
+ZOO_DEPTH = {"gemma2-27b": 2, "starcoder2-15b": 2, "starcoder2-3b": 2,
+             "mixtral-8x22b": 1, "grok-1-314b": 1, "internvl2-76b": 1,
+             "falcon-mamba-7b": 2, "zamba2-2.7b": 12, "seamless-m4t-medium": None}
+ZOO_GATED = ("dense", "ssm")    # families whose decode must equal apply in (c)
+
+
+def _tree_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float32(v) for k, v in tree.items()}
+    return tree.to(torch.float32) if tree.is_floating_point() else tree
+
+
+def zoo_cfg(name: str, n_layers=None):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get(name)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _tree_copy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def _synced(fn, device):
+    """(fn(), seconds) on the host clock, synchronized on a card."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def zoo_inputs(cfg, batch: int, prompt: int, seed: int, device: str):
+    """Seeded inputs: (prompt token ids, stub frontend embeds or None); for
+    enc-dec (first target token, stub source frame embeds)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if cfg.family == "encdec":
+        return (torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=device),
+                torch.randn((batch, prompt, cfg.d_model), generator=gen, device=device,
+                            dtype=dt))
+    n_fe = cfg.n_frontend_tokens if cfg.frontend != "none" else 0
+    fe = (torch.randn((batch, n_fe, cfg.d_model), generator=gen, device=device,
+                      dtype=dt) if n_fe else None)
+    return torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                         device=device), fe
+
+
+def zoo_serve(cfg, params, inputs, steps: int, device: str, check_apply: bool):
+    """One architecture's serving path on ``device``: ``make_prefill_step``
+    (timed), ``greedy_decode_loop`` for ``steps`` tokens from a copy of the
+    prefill cache (timed), the same steps one ``make_decode_step`` call at a
+    time, synchronized, from another copy (each step's wall and logits;
+    its tokens must equal the loop's), and, with ``check_apply``, ``apply``
+    on the prompt and the fed tokens (teacher forcing): its logits at the
+    prefill's last position and at each decoded one against the serving
+    path's.  Requires finite logits of the reference's shapes."""
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+
+    b = inputs[0].shape[0]
+    vocab = lm.padded_vocab(cfg)
+    if cfg.family == "encdec":
+        first, src = inputs
+        s_total = 0
+        max_len = steps
+        cache, prefill_s = _synced(
+            lambda: serve.make_prefill_step(cfg, max_len)(params, src), device)
+        last = None
+    else:
+        tokens, fe = inputs
+        s_total = tokens.shape[1] + (0 if fe is None else fe.shape[1])
+        max_len = s_total + steps
+        (last, cache), prefill_s = _synced(
+            lambda: serve.make_prefill_step(cfg, max_len)(params, tokens, fe), device)
+        first = torch.argmax(last[:, -1], dim=-1)[:, None]
+    stepwise_cache = _tree_copy(cache, device)
+    (greedy, _), loop_s = _synced(lambda: serve.greedy_decode_loop(
+        params, cfg, _tree_copy(cache, device), first, s_total, steps), device)
+    step = serve.make_decode_step(cfg)
+    token, fed, logits, walls = first, [], [], []
+    for i in range(steps):
+        fed.append(token)
+        (lg, stepwise_cache), s = _synced(
+            lambda: step(params, token, stepwise_cache, s_total + i), device)
+        logits.append(lg)
+        walls.append(s)
+        token = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    logits = torch.cat(logits, dim=1)
+    stepwise = torch.argmax(logits, dim=-1)
+    if not torch.equal(stepwise, greedy):
+        raise AssertionError(f"zoo {cfg.name}: greedy_decode_loop gave {greedy.tolist()}, "
+                             f"the stepwise decode {stepwise.tolist()}")
+    want = (b, steps, vocab)
+    if logits.shape != want or (last is not None and last.shape != (b, 1, vocab)) or \
+            not torch.isfinite(logits).all() or \
+            (last is not None and not torch.isfinite(last).all()):
+        raise AssertionError(f"zoo {cfg.name}: decode logits {tuple(logits.shape)} "
+                             f"(want {want}), finite {bool(torch.isfinite(logits).all())}")
+    out = {"prefill_s": prefill_s, "greedy_loop_s": loop_s, "step_s": walls,
+           "step_median_s": statistics.median(walls), "tokens": greedy.tolist(),
+           "cache_bytes": _tree_bytes(cache), "max_len": max_len}
+    if check_apply:
+        fed = torch.cat(fed, dim=1)
+        if cfg.family == "encdec":
+            full = encdec.apply(params, src, fed, cfg)
+            got = logits
+        else:
+            full = lm.apply(params, torch.cat([tokens, fed], dim=1), cfg, fe)[
+                :, s_total - 1:]
+            got = torch.cat([last, logits], dim=1)
+        out["apply_logits"] = full
+        atol, rtol = ZOO_DECODE_TOL
+        err = (got.float() - full.float()).abs()
+        out["decode_vs_apply_max_abs_err"] = float(err.max())
+        out["decode_vs_apply_ok"] = bool((err <= atol + rtol * full.float().abs()).all())
+        if not torch.isfinite(full).all():
+            raise AssertionError(f"zoo {cfg.name}: apply's logits not finite")
+    out["logits"] = torch.cat([logits] if last is None else [last, logits], dim=1)
+    return out
+
+
+def zoo_phase(smi: str):
+    """The plaintext model zoo's serving path (``launch.serve``: prefill, the
+    greedy loop, decode steps; ``models.lm`` / ``models.encdec``), plain
+    torch ops on the card, TF32 off.  (a) ``ZOO_ARCH`` at full width and
+    depth in bfloat16, seeded weights: ``ZOO_SERVE`` (requests, prompt,
+    greedy tokens): the prefill wall, the greedy loop's wall and tokens/s,
+    the warm per-token decode wall (median of synchronized steps), one
+    decode step under torch.profiler (device busy share and op count),
+    parameter and cache bytes; (b) the same model in float32 (``ZOO_F32``)
+    on the card and on the host's CPU: the serving path's and ``apply``'s
+    logits within ``ZOO_F32_TOL``,
+    greedy tokens equal, and on both, decode equal to ``apply`` with the
+    fed tokens within ``ZOO_DECODE_TOL``; (c) each other architecture at
+    full width, depth cut as ``ZOO_DEPTH`` says, bfloat16: prefill
+    ``ZOO_OTHERS``, then its decode steps; finite logits of the
+    reference's shapes; decode against ``apply`` reported, and for the
+    ``ZOO_GATED`` families required within ``ZOO_DECODE_TOL`` on a float32
+    copy of the same weights; memory freed before the next.  The
+    path launches none of the port's kernels (counters zeroed before and
+    read after)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("zoo: TF32 must be off for the float32 checks")
+    ops.reset_launches()
+    record = {"card": smi}
+    # (a) full depth, bfloat16
+    cfg = zoo_cfg(ZOO_ARCH)
+    b, prompt, steps = ZOO_SERVE
+    with torch.inference_mode():
+        params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        inputs = zoo_inputs(cfg, b, prompt, 1, "cuda")
+        cold = zoo_serve(cfg, params, inputs, 2, "cuda", False)   # first calls
+        run = zoo_serve(cfg, params, inputs, steps, "cuda", False)
+        token = torch.tensor(run["tokens"], device="cuda")[:, -1:]
+        cache = serve.make_prefill_step(cfg, prompt + steps + 1)(params, inputs[0])[1]
+        step = serve.make_decode_step(cfg)
+        prof = _profiled(lambda: step(params, token, cache, prompt), again=True)
+    tok_s = b * steps / run["greedy_loop_s"]
+    a = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+         "requests": b, "prompt": prompt, "steps": steps,
+         "param_bytes": _tree_bytes(params), "cache_bytes": run["cache_bytes"],
+         "first_prefill_s": cold["prefill_s"], "prefill_s": run["prefill_s"],
+         "greedy_loop_s": run["greedy_loop_s"], "tokens_per_s": tok_s,
+         "decode_step_median_s": run["step_median_s"],
+         "decode_step_s": run["step_s"], "decode_step_profile": prof}
+    print(f"zoo (a) {cfg.name} full width and depth ({cfg.n_layers} layers), "
+          f"bfloat16, seeded weights [{smi}]: {a['param_bytes']} B of params, "
+          f"cache {a['cache_bytes']} B ({b} x {prompt + steps} slots); prefill {b} x "
+          f"{prompt} tokens {run['prefill_s']:.4f} s (first call "
+          f"{cold['prefill_s']:.4f} s); greedy_decode_loop {steps} tokens "
+          f"{run['greedy_loop_s']:.4f} s = {tok_s:.1f} tokens/s; decode step "
+          f"(synchronized) median {run['step_median_s'] * 1e3:.3f} ms "
+          f"(min {min(run['step_s']) * 1e3:.3f}, max {max(run['step_s']) * 1e3:.3f}); "
+          f"one decode step profiled: device busy {prof['device_busy_share']:.3f} of "
+          f"{prof['span_s'] * 1e3:.3f} ms, {prof['device_ops']} device ops; top "
+          f"{prof['top_device_ops_us'][:3]}", flush=True)
+    record["a"] = a
+    del params, cache, run, cold
+    torch.cuda.empty_cache()
+
+    # (b) float32, the card against the host's CPU
+    cfg32 = dataclasses.replace(zoo_cfg(ZOO_ARCH), dtype="float32")
+    b, prompt, steps = ZOO_F32
+    runs = {}
+    with torch.inference_mode():
+        params = lm.init(cfg32, torch.Generator(device="cuda").manual_seed(2))
+        inputs = zoo_inputs(cfg32, b, prompt, 3, "cuda")
+        for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+            p = _tree_copy(params, dev)
+            x = tuple(None if t is None else t.to(dev) for t in inputs)
+            runs[where] = zoo_serve(cfg32, p, x, steps, dev, True)
+            del p
+    atol, rtol = ZOO_F32_TOL
+    f32_err, f32_ok = 0.0, True
+    for key in ("logits", "apply_logits"):
+        got, want = runs["card"][key].cpu(), runs["cpu"][key]
+        f32_err = max(f32_err, float((got - want).abs().max()))
+        f32_ok &= bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+    bb = {"arch": cfg32.name, "dtype": "float32", "requests": b, "prompt": prompt,
+          "steps": steps, "card_vs_cpu_max_abs_err": f32_err, "tol": list(ZOO_F32_TOL),
+          "tokens_equal": runs["card"]["tokens"] == runs["cpu"]["tokens"],
+          "tokens": runs["card"]["tokens"]}
+    for where in ("card", "cpu"):
+        r = runs[where]
+        bb[where] = {k: r[k] for k in ("prefill_s", "greedy_loop_s", "step_median_s",
+                                       "decode_vs_apply_max_abs_err",
+                                       "decode_vs_apply_ok")}
+    print(f"zoo (b) {cfg32.name} float32, {b} x {prompt} tokens + {steps} decode "
+          f"steps [{smi}]: card vs CPU logits (serving and apply) max |diff| "
+          f"{f32_err:.3g} (atol {atol}, "
+          f"rtol {rtol}), greedy tokens equal {bb['tokens_equal']}; decode vs apply "
+          f"max |diff| card {bb['card']['decode_vs_apply_max_abs_err']:.3g}, CPU "
+          f"{bb['cpu']['decode_vs_apply_max_abs_err']:.3g} (atol {ZOO_DECODE_TOL[0]}, "
+          f"rtol {ZOO_DECODE_TOL[1]}); card prefill {bb['card']['prefill_s']:.4f} s, "
+          f"decode step median {bb['card']['step_median_s'] * 1e3:.3f} ms; CPU "
+          f"prefill {bb['cpu']['prefill_s']:.4f} s, decode step median "
+          f"{bb['cpu']['step_median_s'] * 1e3:.3f} ms", flush=True)
+    if not (f32_ok and bb["tokens_equal"] and bb["card"]["decode_vs_apply_ok"]
+            and bb["cpu"]["decode_vs_apply_ok"]):
+        raise AssertionError(f"zoo (b): {bb}")
+    record["b"] = bb
+    del params, runs, got, want
+    torch.cuda.empty_cache()
+
+    # (c) the other architectures at full width
+    b, prompt, steps = ZOO_OTHERS
+    record["c"] = []
+    torch.cuda.reset_peak_memory_stats()
+    for seed, (name, depth) in enumerate(ZOO_DEPTH.items(), start=10):
+        cfg = zoo_cfg(name, depth)
+        model = encdec if cfg.family == "encdec" else lm
+        t0 = time.perf_counter()
+        gated = cfg.family in ZOO_GATED
+        with torch.inference_mode():
+            params = model.init(cfg, torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            inputs = zoo_inputs(cfg, b, prompt, seed + 100, "cuda")
+            r = zoo_serve(cfg, params, inputs, steps, "cuda", True)
+            if gated:     # the same weights and inputs in float32
+                r32 = zoo_serve(dataclasses.replace(cfg, dtype="float32"),
+                                _tree_float32(params), inputs, steps, "cuda", True)
+        c = {"arch": name, "family": cfg.family, "layers": cfg.n_layers,
+             "enc_layers": cfg.n_enc_layers, "cut": depth is not None,
+             "param_bytes": _tree_bytes(params), "init_s": init_s,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             **{k: r[k] for k in ("prefill_s", "greedy_loop_s", "step_median_s",
+                                  "cache_bytes", "decode_vs_apply_max_abs_err",
+                                  "decode_vs_apply_ok")},
+             "float32_decode_vs_apply_max_abs_err":
+                 r32["decode_vs_apply_max_abs_err"] if gated else None,
+             "decode_vs_apply_gated": gated, "wall_s": time.perf_counter() - t0}
+        print(f"zoo (c) {name} [{cfg.family}] full width, "
+              f"{'depth cut to ' if depth is not None else 'whole, '}"
+              f"{cfg.n_layers} layers{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+              f"{f', {prompt} stub audio frames' if cfg.family == 'encdec' else ''}"
+              f"{f', {cfg.n_frontend_tokens} stub {cfg.frontend} tokens' if cfg.frontend == 'vision' else ''}"
+              f", bfloat16 [{smi}]: {c['param_bytes']} B of params (init {init_s:.2f} s), "
+              f"prefill {b} x {prompt} {r['prefill_s']:.4f} s, {steps} decode steps "
+              f"(loop) {r['greedy_loop_s']:.4f} s, step median "
+              f"{r['step_median_s'] * 1e3:.3f} ms; decode vs apply max |diff| "
+              f"{r['decode_vs_apply_max_abs_err']:.3g} (reported)"
+              + (f", float32 copy {r32['decode_vs_apply_max_abs_err']:.3g} (required "
+                 f"within atol {ZOO_DECODE_TOL[0]}, rtol {ZOO_DECODE_TOL[1]}: "
+                 f"{r32['decode_vs_apply_ok']})" if gated else ""), flush=True)
+        record["c"].append(c)
+        if gated and not r32["decode_vs_apply_ok"]:
+            raise AssertionError(f"zoo (c) {name}: decode vs apply {c}")
+        del params, r, inputs
+        r32 = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"zoo: the path launched the port's kernels {counts}")
+    return record
+
+
 PHASE_S: dict = {}
 
 
@@ -3716,6 +4046,8 @@ def main() -> None:
     analysis = _phase("analysis", analysis_phase, deploy_s)
     del deploy_s, deploy_sim
     mesh_rows = _phase("mesh-kernels", mesh_kernel_phase)
+    torch.cuda.empty_cache()
+    zoo = _phase("zoo", zoo_phase, smi)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
                          ("frontend", front_launches), ("seed-oracle", seed_launches),
                          ("deploy", deploy_launches), ("mesh", mesh_launches)):
@@ -3745,7 +4077,7 @@ def main() -> None:
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
                    "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
-                   "analysis": analysis,
+                   "analysis": analysis, "zoo": zoo,
                    "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,16 +1,75 @@
-"""MPC serving steps (the reference's ``launch/serve.py``: its private
-ResNet step; the plaintext LM's prefill, decode and greedy loop belong to
-the float model zoo and are not ported)."""
+"""Serving steps (twin of the reference's ``launch/serve.py``): the
+plaintext LM's prefill, decode and greedy loop over every family of the
+model zoo, the private ResNet step and the ResNet serving engine.
+
+The decode steps update the serving cache in place (``lm.decode_step``).
+"""
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from .. import api
+from ..configs.base import ArchConfig
 from ..configs.resnet import ResNetConfig
 from ..core.hummingbird import HBConfig
 from ..device import Device
-from ..models import resnet
+from ..models import encdec, lm, resnet
 
+
+def make_decode_step(cfg: ArchConfig):
+    """step(params, token, cache, pos) -> (logits, cache)."""
+    model = encdec if cfg.family == "encdec" else lm
+
+    def step(params, token, cache, pos):
+        return model.decode_step(params, token, cache, pos, cfg)
+    return step
+
+
+def make_prefill_step(cfg: ArchConfig, max_len: int):
+    """step(params, tokens, frontend_embeds=None) -> (last logits, cache);
+    for enc-dec, step(params, src_embeds) -> cache."""
+    if cfg.family == "encdec":
+        def step(params, src_embeds):
+            return encdec.prefill(params, src_embeds, cfg, src_embeds.shape[0],
+                                  max_len)
+    else:
+        def step(params, tokens, frontend_embeds=None):
+            return lm.prefill(params, tokens, cfg, max_len,
+                              frontend_embeds=frontend_embeds)
+    return step
+
+
+def greedy_decode_loop(params, cfg: ArchConfig, cache, first_token: torch.Tensor,
+                       start_pos: int, n_steps: int):
+    """Greedy decoding: ``n_steps`` decode steps from ``first_token`` (B, 1)
+    at ``start_pos``, each feeding back the argmax (the first maximum, as
+    ``jnp.argmax``).  Returns (tokens (B, n_steps), cache).
+
+    Example (CPU)::
+
+        cfg = configs.get("qwen1.5-0.5b-smoke")
+        params = lm.init(cfg, torch.Generator().manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab, (2, 16))
+        logits, cache = make_prefill_step(cfg, max_len=24)(params, prompt)
+        first = logits[:, -1].argmax(-1, keepdim=True)
+        tokens, cache = greedy_decode_loop(params, cfg, cache, first, 16, 8)
+    """
+    step = make_decode_step(cfg)
+    token, out = first_token, []
+    for i in range(n_steps):
+        logits, cache = step(params, token, cache, start_pos + i)
+        token = torch.argmax(logits[:, -1], dim=-1).to(token.dtype)[:, None]
+        out.append(token[:, 0])
+    if not out:
+        return first_token.new_zeros((first_token.shape[0], 0)), cache
+    return torch.stack(out, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# MPC private inference (ResNet, the paper's workload)
+# ---------------------------------------------------------------------------
 
 def make_mpc_serve_step(rcfg: ResNetConfig, hb: Optional[HBConfig],
                         cone: bool = False, mesh=None,
@@ -34,3 +93,33 @@ def make_mpc_serve_step(rcfg: ResNetConfig, hb: Optional[HBConfig],
                                          name=rcfg.name),
                         api.Session(device=device))
     return model.serve_step(mesh, party_axis=party_axis, data_axis=data_axis)
+
+
+def make_inference_engine(params, rcfg: ResNetConfig,
+                          hb: Optional[HBConfig] = None, *,
+                          example_batch: int = 2, cone: bool = False,
+                          session=None, policy=None, **engine_kw):
+    """Request-level serving engine over a ResNet config (the paper's
+    workload), ``serve.InferenceEngine``.
+
+    Traces the plan at ``example_batch`` (other request shapes are traced
+    on demand into the engine's plan cache) and binds the HummingBird
+    assignment ``hb`` (exact 64-bit when None).
+
+    Example::
+
+        engine = make_inference_engine(params, RESNET_SMOKE, hb,
+                                       session=api.Session(key=0, device="cpu"))
+        fut = engine.submit("tenant-a", x)
+        logits = fut.result().reveal()
+    """
+    from ..serve import InferenceEngine
+
+    def afn(p, v, relu_fn=None):
+        return resnet.apply(p, v, rcfg, relu_fn=relu_fn)
+
+    plan = resnet.trace(params, rcfg, example_batch, cone=cone)
+    if hb is not None:
+        plan = plan.with_hb(HBConfig(hb.layers, plan.group_elements))
+    return InferenceEngine(afn, params, rcfg, plan, session, policy=policy,
+                           **engine_kw)

@@ -1,4 +1,5 @@
-"""Model zoo of the port: ResNet and the dense decoder LM."""
-from . import lm, resnet
+"""Model zoo of the port: ResNet, the decoder LM (every family) and the
+encoder-decoder."""
+from . import encdec, lm, resnet
 
-__all__ = ["lm", "resnet"]
+__all__ = ["encdec", "lm", "resnet"]

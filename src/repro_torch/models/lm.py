@@ -1,10 +1,29 @@
-"""Private inference of the dense decoder LM (twin of the private-inference
-part of the reference's ``models/lm.py``).
+"""Unified decoder LM covering the dense, MoE, SSM, hybrid and VLM families,
+and its private inference (twin of the reference's ``models/lm.py``).
 
-The MPC lowering replaces every transformer nonlinearity with a
-reduced-ring composition (``nn/approx``): SiLU/GELU become knot-stacked
-ReLU sums, softmax becomes ReLU + a public causal-mean normalization, and
-rms/layer norms become their static-scale approximation (x * scale: the
+Weights are a params tree in the reference's layout (``layers`` leaves
+stacked on a leading layer axis, projections [in, out]), so trees carry
+across with ``params_from_jax``.  Layers run in a Python loop over that
+axis (the reference's ``lax.scan``); gemma2's local/global alternation is
+a per-layer window.  Hybrid (zamba2) splits the stack into
+``attn_every``-sized segments with one *shared* attention block (one
+param set) before each, so its KV cache exists for n_layers/attn_every
+slots only.
+
+Plaintext modes:
+  apply        - full-sequence forward
+  prefill      - forward + KV/SSM cache construction (serving)
+  decode_step  - one token with the cache updated in place (serving)
+
+The cache keeps K/V in bfloat16 and the SSM states in float32, as the
+reference's.  ``decode_step`` writes into the cache's tensors and returns
+the same dict; clone the cache to keep the state before a step.
+
+Private inference (dense family only, as the reference's): the MPC
+lowering replaces every transformer nonlinearity with a reduced-ring
+composition (``nn/approx``): SiLU/GELU become knot-stacked ReLU sums,
+softmax becomes ReLU + a public causal-mean normalization, and rms/layer
+norms become their static-scale approximation (x * scale: the
 data-dependent rsqrt has no cheap GMW circuit).  ``mpc_reference`` is the
 plaintext twin of ``_lm_mpc_forward``: it makes the same relu_fn /
 .matmul / .mul hook calls in the same order, so ``trace()`` prices the
@@ -12,16 +31,10 @@ replay (ReLU groups: 2 per layer, the attention scores then the MLP
 activation; Beaver opens: QK^T, A@V, gate*up per layer).  The input is the
 *embedded* hidden states (B, S, d_model): the token lookup happens
 client-side in the clear.
-
-Weights are a params tree in the reference's layout (``layers`` leaves
-stacked on a leading layer axis, projections [in, out]), so trees carry
-across with ``params_from_jax``.  Only the dense family is lowered; the
-plaintext ``apply``/``prefill``/``decode_step``, flash attention, MoE and
-SSM are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -30,7 +43,9 @@ from ..api import Plan, register_mpc_forward, trace_plan
 from ..configs.base import ArchConfig
 from ..core import mpc_tensor
 from ..device import Device, resolve as resolve_device
-from ..nn import approx, attention, common, rope_tables
+from ..nn import approx, attention, common, moe as moe_lib, rope_tables, ssm
+
+BIG_WINDOW = 1 << 30
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -42,16 +57,21 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _norm_init(cfg: ArchConfig, d: int, dtype, device):
-    return (common.layernorm_init(d, dtype, device) if cfg.norm == "layernorm"
-            else common.rmsnorm_init(d, dtype, device))
+def _norm_init(cfg: ArchConfig, d: int, device):
+    """Norm params, float32 whatever the model's dtype (the reference's)."""
+    return (common.layernorm_init(d, device=device) if cfg.norm == "layernorm"
+            else common.rmsnorm_init(d, device=device))
+
+
+def _norm(cfg: ArchConfig, p, x):
+    return (common.layernorm(p, x) if cfg.norm == "layernorm"
+            else common.rmsnorm(p, x))
 
 
 def _dense_only(cfg: ArchConfig) -> None:
     if cfg.family != "dense":
         raise ValueError(
-            f"MPC lowering covers the dense family only, not {cfg.family!r} "
-            "(other families: ROADMAP queue 1, item 11)")
+            f"MPC lowering covers the dense family only, not {cfg.family!r}")
 
 
 def _stack(trees):
@@ -62,42 +82,75 @@ def _stack(trees):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked params tree."""
+    """Layer ``i`` of a stacked tree (views)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
 
 
+def _set_layer(tree, i: int, new) -> None:
+    """Copy ``new`` into layer ``i`` of the stacked ``tree``, in place."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _set_layer(v, i, new[k])
+        else:
+            v[i] = new[k]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen: torch.Generator, cfg: ArchConfig):
+    return attention.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, cfg.qkv_bias, _dtype(cfg))
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
+    dt, d = _dtype(cfg), cfg.d_model
+    p: Dict[str, Any] = {"ln1": _norm_init(cfg, d, gen.device)}
+    if cfg.family in ("dense", "vlm", "moe"):
+        p["attn"] = _attn_init(gen, cfg)
+        p["ln2"] = _norm_init(cfg, d, gen.device)
+        if cfg.family == "moe":
+            p["moe"] = moe_lib.moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                                        cfg.gated_mlp, dt)
+        else:
+            p["mlp"] = common.mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, dt)
+    elif cfg.family == "ssm":
+        p["mamba"] = ssm.mamba1_init(gen, d, cfg.ssm_state, cfg.ssm_expand, dtype=dt)
+    elif cfg.family == "hybrid":
+        p["mamba"] = ssm.mamba2_init(gen, d, cfg.ssm_state, cfg.mamba2_head_dim,
+                                     cfg.ssm_expand, dt)
+    else:
+        raise ValueError(cfg.family)
+    return p
+
+
 def init(cfg: ArchConfig, generator: torch.Generator) -> Dict[str, Any]:
-    """Random params of a dense-family LM in the reference's tree layout,
-    drawn from ``generator`` on its device (the reference's init scales:
-    N(0, 1/d_in) projections, zero biases, unit norm scales, N(0, 0.02^2)
-    embeddings).  Other families raise ``ValueError``."""
-    _dense_only(cfg)
+    """Random params in the reference's tree layout, drawn from
+    ``generator`` on its device (the reference's init scales: N(0, 1/d_in)
+    projections, zero biases, unit norm scales, N(0, 0.02^2) embeddings,
+    the SSM and MoE layers' own).  The enc-dec family is ``models/encdec``'s."""
     dt, dev, d = _dtype(cfg), generator.device, cfg.d_model
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": _norm_init(cfg, d, dt, dev),
-            "attn": attention.attn_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                                        cfg.resolved_head_dim, cfg.qkv_bias, dt),
-            "ln2": _norm_init(cfg, d, dt, dev),
-            "mlp": common.mlp_init(generator, d, cfg.d_ff, cfg.gated_mlp, dt),
-        })
     vocab = padded_vocab(cfg)
-    return {
-        "embed": {"table": torch.randn((vocab, d), generator=generator, dtype=dt,
-                                       device=dev) * 0.02},
-        "layers": _stack(layers),
-        "final_norm": _norm_init(cfg, d, dt, dev),
+    params = {
+        "embed": common.embed_init(generator, vocab, d, dt),
+        "layers": _stack([_layer_init(generator, cfg) for _ in range(cfg.n_layers)]),
+        "final_norm": _norm_init(cfg, d, dev),
         "lm_head": common.dense_init(generator, d, vocab, dt),
     }
+    if cfg.family == "hybrid" and cfg.attn_every:
+        params["shared_attn"] = {"ln": _norm_init(cfg, d, dev),
+                                 "attn": _attn_init(generator, cfg)}
+    return params
 
 
 def params_from_jax(np_tree, device: Device = None) -> Dict[str, Any]:
-    """The reference's ``lm.init`` tree, as numpy arrays, -> the port's tree
-    on ``device`` (default the GPU): same keys, ``layers`` leaves still
-    stacked on axis 0, same dtypes (bfloat16 leaves stay bfloat16)."""
+    """The reference's ``lm.init`` (or ``encdec.init``) tree, as numpy
+    arrays, -> the port's tree on ``device`` (default the GPU): same keys,
+    stacked leaves still stacked on axis 0, same dtypes (bfloat16 leaves
+    stay bfloat16)."""
     device = resolve_device(device)
 
     def leaf(a):
@@ -112,6 +165,235 @@ def params_from_jax(np_tree, device: Device = None) -> Dict[str, Any]:
         return leaf(tree)
 
     return walk(np_tree)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _layer_window(cfg: ArchConfig, idx: int) -> Optional[int]:
+    """The attention window of layer ``idx`` (None: global).  gemma2's even
+    layers are local; its odd ones get ``BIG_WINDOW``, as the reference's."""
+    if cfg.local_global_period:
+        return (cfg.sliding_window if idx % cfg.local_global_period == 0
+                else BIG_WINDOW)
+    return cfg.sliding_window or None
+
+
+def _attn_kwargs(cfg: ArchConfig):
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                cap=cfg.attn_softcap, chunk_q=cfg.attn_chunk_q,
+                chunk_k=cfg.attn_chunk_k)
+
+
+def _decode_kwargs(cfg: ArchConfig):
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                cap=cfg.attn_softcap)
+
+
+def _ffn(cfg: ArchConfig, p, h):
+    """The MLP (or MoE) half of an attention block, residual added."""
+    x = _norm(cfg, p["ln2"], h)
+    if cfg.family == "moe":
+        return h + moe_lib.moe(p["moe"], x, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               act_name=cfg.act)
+    return h + common.mlp(p["mlp"], x, cfg.act)
+
+
+def _attn_mlp_block(cfg: ArchConfig, p, h, idx: int):
+    a = attention.attention(p["attn"], _norm(cfg, p["ln1"], h), **_attn_kwargs(cfg),
+                            window=_layer_window(cfg, idx))
+    return _ffn(cfg, p, h + a)
+
+
+def _mamba_block(cfg: ArchConfig, p, h, return_state: bool = False):
+    x = _norm(cfg, p["ln1"], h)
+    if cfg.mamba_version == 1:
+        out = ssm.mamba1(p["mamba"], x, n_state=cfg.ssm_state, chunk=cfg.ssm_chunk,
+                         return_state=return_state)
+    else:
+        out = ssm.mamba2(p["mamba"], x, n_state=cfg.ssm_state,
+                         head_dim=cfg.mamba2_head_dim, chunk=cfg.ssm_chunk,
+                         return_state=return_state)
+    if return_state:
+        return h + out[0], out[1]
+    return h + out
+
+
+def _mamba_decode(cfg: ArchConfig, p, h, state):
+    x = _norm(cfg, p["ln1"], h)
+    if cfg.mamba_version == 1:
+        y, st = ssm.mamba1_decode(p["mamba"], x, state, n_state=cfg.ssm_state)
+    else:
+        y, st = ssm.mamba2_decode(p["mamba"], x, state, n_state=cfg.ssm_state,
+                                  head_dim=cfg.mamba2_head_dim)
+    return h + y, st
+
+
+def _segments(cfg: ArchConfig):
+    """The hybrid's (lo, hi) layer ranges, one per shared-attention slot."""
+    per = cfg.attn_every
+    return [(lo, min(lo + per, cfg.n_layers)) for lo in range(0, cfg.n_layers, per)]
+
+
+def _logits(params, cfg: ArchConfig, h):
+    h = _norm(cfg, params["final_norm"], h)
+    return common.softcap(common.dense(params["lm_head"], h), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds):
+    h = common.embed(params["embed"], tokens)
+    if cfg.frontend != "none":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: a {cfg.frontend} arch needs its stub "
+                             "frontend embeds")
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def apply(params, tokens, cfg: ArchConfig, frontend_embeds=None):
+    """tokens: (B, S_tok) -> logits (B, S_total, vocab)."""
+    h = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    if cfg.family == "hybrid" and cfg.attn_every:
+        h = _hybrid_forward(params, h, cfg)
+    else:
+        for l in range(cfg.n_layers):
+            p = _layer(params["layers"], l)
+            h = (_attn_mlp_block(cfg, p, h, l) if cfg.family in ("dense", "moe", "vlm")
+                 else _mamba_block(cfg, p, h))
+    return _logits(params, cfg, h)
+
+
+def _hybrid_forward(params, h, cfg: ArchConfig):
+    """zamba2: the shared attention block before each segment of mamba2
+    layers."""
+    sa = params["shared_attn"]
+    for lo, hi in _segments(cfg):
+        h = h + attention.attention(sa["attn"], _norm(cfg, sa["ln"], h),
+                                    **_attn_kwargs(cfg))
+        for l in range(lo, hi):
+            h = _mamba_block(cfg, _layer(params["layers"], l), h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _stacked(tree, n: int):
+    return {k: torch.stack([v] * n) for k, v in tree.items()}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: Device = None):
+    """The serving cache, zeroed: per layer (hybrid: per segment) K/V of
+    ``max_len`` slots in bfloat16, per layer SSM state in float32."""
+    device = resolve_device(device)
+    kv = lambda n: _stacked(attention.init_kv_cache(
+        batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim, torch.bfloat16,
+        device), n)
+    di = cfg.ssm_expand * cfg.d_model
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {"kv": kv(cfg.n_layers)}
+    if cfg.family == "ssm":
+        return {"ssm": _stacked(ssm.mamba1_init_state(batch, di, cfg.ssm_state,
+                                                      device), cfg.n_layers)}
+    if cfg.family == "hybrid":
+        return {"ssm": _stacked(ssm.mamba2_init_state(batch, di, cfg.ssm_state,
+                                                      cfg.mamba2_head_dim, device),
+                                cfg.n_layers),
+                "kv": kv(len(_segments(cfg)))}
+    raise ValueError(cfg.family)
+
+
+def decode_step(params, token, cache, pos: int, cfg: ArchConfig):
+    """token: (B, 1) ids; ``pos``: the token's position (an int).  Returns
+    (logits (B, 1, vocab), cache), the cache updated in place."""
+    h = common.embed(params["embed"], token)
+    layers = params["layers"]
+    if cfg.family in ("dense", "moe", "vlm"):
+        for l in range(cfg.n_layers):
+            p = _layer(layers, l)
+            a, _ = attention.attention_decode(
+                p["attn"], _norm(cfg, p["ln1"], h), _layer(cache["kv"], l), pos,
+                **_decode_kwargs(cfg), window=_layer_window(cfg, l))
+            h = _ffn(cfg, p, h + a)
+    elif cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            h, st = _mamba_decode(cfg, _layer(layers, l), h, _layer(cache["ssm"], l))
+            _set_layer(cache["ssm"], l, st)
+    else:  # hybrid
+        sa = params["shared_attn"]
+        for seg, (lo, hi) in enumerate(_segments(cfg)):
+            a, _ = attention.attention_decode(
+                sa["attn"], _norm(cfg, sa["ln"], h), _layer(cache["kv"], seg), pos,
+                **_decode_kwargs(cfg))
+            h = h + a
+            for l in range(lo, hi):
+                h, st = _mamba_decode(cfg, _layer(layers, l), h,
+                                      _layer(cache["ssm"], l))
+                _set_layer(cache["ssm"], l, st)
+    return _logits(params, cfg, h), cache
+
+
+def _attend_prefill(cfg: ArchConfig, p_attn, x, window=None):
+    """Prefill attention: (output, k, v) of the whole sequence."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = attention._project_qkv(p_attn, x, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim, positions,
+                                     cfg.rope_theta)
+    o = attention.flash_attention(q, k, v, q_offset=0, chunk_q=cfg.attn_chunk_q,
+                                  chunk_k=cfg.attn_chunk_k, window=window,
+                                  cap=cfg.attn_softcap)
+    a = common.dense(p_attn["wo"], o.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim))
+    return a, k, v
+
+
+def _fill_kv(kv, i: int, k, v) -> None:
+    s = k.shape[1]
+    kv["k"][i, :, :s] = k.to(torch.bfloat16)
+    kv["v"][i, :, :s] = v.to(torch.bfloat16)
+
+
+def prefill(params, tokens, cfg: ArchConfig, max_len: int, frontend_embeds=None):
+    """Full-sequence forward that also fills the serving cache (K/V of the
+    attention layers at positions ``[0, S)``, each SSM layer's final
+    state).  Returns (last-position logits (B, 1, vocab), cache)."""
+    h = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    b, s = h.shape[0], h.shape[1]
+    if s > max_len:
+        raise ValueError(f"prefill of {s} positions into a cache of {max_len}")
+    cache = init_cache(cfg, b, max_len, h.device)
+    layers = params["layers"]
+    if cfg.family in ("dense", "moe", "vlm"):
+        for l in range(cfg.n_layers):
+            p = _layer(layers, l)
+            a, k, v = _attend_prefill(cfg, p["attn"], _norm(cfg, p["ln1"], h),
+                                      _layer_window(cfg, l))
+            _fill_kv(cache["kv"], l, k, v)
+            h = _ffn(cfg, p, h + a)
+    elif cfg.family == "ssm":
+        for l in range(cfg.n_layers):
+            h, st = _mamba_block(cfg, _layer(layers, l), h, return_state=True)
+            _set_layer(cache["ssm"], l, st)
+    else:  # hybrid
+        sa = params["shared_attn"]
+        for seg, (lo, hi) in enumerate(_segments(cfg)):
+            a, k, v = _attend_prefill(cfg, sa["attn"], _norm(cfg, sa["ln"], h))
+            _fill_kv(cache["kv"], seg, k, v)
+            h = h + a
+            for l in range(lo, hi):
+                h, st = _mamba_block(cfg, _layer(layers, l), h, return_state=True)
+                _set_layer(cache["ssm"], l, st)
+    return _logits(params, cfg, h[:, -1:]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,32 @@
-"""Attention projections of the dense LM (twin of ``attn_init`` and
-``_project_qkv`` in the reference's ``nn/attention.py``).  The softmax
-attention itself is not needed by the private LM, whose attention is the
-ReLU attention of ``nn/approx``."""
+"""GQA attention with RoPE, sliding windows, logit softcap and KV caches
+(twin of the reference's ``nn/attention.py``).
+
+Training and prefill use the reference's flash-style chunked attention:
+an unrolled loop over query chunks, an inner loop over key/value chunks
+``0..i`` only (block-level causal skipping) and an online softmax in
+float32.  Decode attends one new token against the whole cache, masked to
+``cache[: pos + 1]`` (and the sliding window).  The mesh sharding
+constraints of the reference are the identity without a mesh and are
+dropped here.
+
+The cache is written in place: ``attention_decode`` stores the new K/V at
+``pos`` in the tensors of ``cache`` and returns the same dict (the
+reference returns a new one).  A position outside the cache raises,
+where the reference's ``dynamic_update_slice`` clamps it to the last
+slot.
+"""
 from __future__ import annotations
 
-import torch
+import math
+from typing import Dict, Optional
 
+import torch
+import torch.nn.functional as F
+
+from ..device import Device, resolve as resolve_device
 from . import common
+
+NEG_INF = -2.0e38
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
@@ -34,3 +54,122 @@ def _project_qkv(params, x, n_heads: int, n_kv: int, head_dim: int,
         q = common.rope(q, positions, rope_theta)
         k = common.rope(k, positions, rope_theta)
     return q, k, v
+
+
+def _chunk_scores(q, k, scale: float, cap: float):
+    """q: (B, Cq, K, G, Dh); k: (B, Ck, K, Dh) -> (B, K, G, Cq, Ck)."""
+    s = torch.einsum("bqkgd,bckd->bkgqc", q, k) * scale
+    return common.softcap(s, cap)
+
+
+def flash_attention(q, k, v, *, q_offset: int, chunk_q: int, chunk_k: int,
+                    window: Optional[int] = None, cap: float = 0.0) -> torch.Tensor:
+    """Causal chunked attention.  q: (B, S, H, Dh); k, v: (B, S, K, Dh).
+
+    Sequences that don't divide the chunk sizes are padded at the end;
+    padded keys sit at positions past every real query, so the causal mask
+    removes them, and padded query rows are sliced off the output.
+    """
+    b, s_real, h, dh = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    scale = dh ** -0.5
+    cq = min(chunk_q, s_real)
+    ck = min(chunk_k, s_real)
+    mult = cq * ck // math.gcd(cq, ck)
+    pad = (-s_real) % mult
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    s = s_real + pad
+    nq, nk = s // cq, s // ck
+    qc = q.reshape(b, nq, cq, n_kv, g, dh)
+    kc = k.reshape(b, nk, ck, n_kv, dh)
+    vc = v.reshape(b, nk, ck, n_kv, dh)
+    dev = q.device
+    out = []
+    for iq in range(nq):            # block-level causal skipping
+        q_i = qc[:, iq].to(torch.float32)
+        q_pos = q_offset + iq * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, n_kv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, n_kv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, n_kv, g, cq, dh), dtype=torch.float32, device=dev)
+        for jk in range(iq * cq // ck + 1):     # kv chunks visible to chunk iq
+            k_pos = jk * ck + torch.arange(ck, device=dev)
+            sc = _chunk_scores(q_i, kc[:, jk].to(torch.float32), scale, cap)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            sc = torch.where(mask, sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p, vc[:, jk].to(torch.float32))
+            m = m_new
+        o = acc / torch.clamp_min(l[..., None], 1e-30)
+        out.append(o.permute(0, 3, 1, 2, 4).reshape(b, cq, h, dh))
+    return torch.cat(out, dim=1).to(q.dtype)[:, :s_real]
+
+
+def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
+              positions=None, rope_theta: float = 10000.0,
+              window: Optional[int] = None, cap: float = 0.0,
+              chunk_q: int = 512, chunk_k: int = 1024) -> torch.Tensor:
+    """Full-sequence causal attention (training / prefill)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions,
+                           rope_theta)
+    o = flash_attention(q, k, v, q_offset=0, chunk_q=chunk_q, chunk_k=chunk_k,
+                        window=window, cap=cap)
+    return common.dense(params["wo"], o.reshape(b, s, n_heads * head_dim))
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device: Device = None) -> Dict[str, torch.Tensor]:
+    device = resolve_device(device)
+    return {"k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device)}
+
+
+def cache_slot(pos: int, max_len: int) -> int:
+    """``pos`` as a cache index; raises outside ``[0, max_len)``."""
+    pos = int(pos)
+    if not 0 <= pos < max_len:
+        raise IndexError(f"position {pos} outside the cache's {max_len} slots")
+    return pos
+
+
+def attention_decode(params, x, cache, pos: int, *, n_heads: int, n_kv: int,
+                     head_dim: int, rope_theta: float = 10000.0,
+                     window: Optional[int] = None, cap: float = 0.0):
+    """One-token decode.  x: (B, 1, D); ``pos``: the current position.
+
+    Writes the token's K/V into ``cache`` at ``pos`` (in place) and attends
+    over ``cache[: pos + 1]`` by masking.  Returns (y, cache).
+    """
+    b = x.shape[0]
+    s_max = cache["k"].shape[1]
+    pos = cache_slot(pos, s_max)
+    positions = torch.full((b, 1), pos, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv, head_dim,
+                                   positions, rope_theta)
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    g = n_heads // n_kv
+    qh = q.reshape(b, 1, n_kv, g, head_dim).to(torch.float32)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qh,
+                      cache["k"].to(torch.float32)) * head_dim ** -0.5
+    sc = common.softcap(sc, cap)
+    kpos = torch.arange(s_max, device=x.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask &= kpos > pos - window
+    p = torch.softmax(torch.where(mask, sc, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, cache["v"].to(torch.float32))
+    o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    return common.dense(params["wo"], o), cache

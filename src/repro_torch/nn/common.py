@@ -1,17 +1,22 @@
-"""Shared neural-net primitives of the dense LM (twin of the pieces of the
-reference's ``nn/common.py`` that the private LM needs), and the MPC
-bridge ``mpc_relu_many``.
+"""Shared neural-net primitives of the plaintext model zoo (twin of the
+reference's ``nn/common.py``), and the MPC bridge ``mpc_relu_many``.
 
 Functional style as in the reference: ``*_init`` builds param trees
 (plain dicts of tensors) from an explicit ``torch.Generator`` on its
-device, the apply functions are pure, and every apply function also runs
-on ``meta`` tensors (the plan tracer's shape-only pass).
+device, the apply functions are pure, and ``dense`` and ``rope`` also
+run on ``meta`` tensors (the plan tracer's shape-only pass).
+
+Mixed dtypes promote as jnp does: a float32 activation times a bfloat16
+weight is a float32 product (``einsum``), where ``torch.einsum`` itself
+would refuse the pair.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -25,8 +30,15 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return {"w": w}
 
 
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` over operands promoted to one dtype, as jnp.einsum
+    promotes them (float32 with bfloat16 gives float32)."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in operands))
+    return torch.einsum(equation, *(t.to(dt) for t in operands))
+
+
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.einsum("...d,df->...f", x, params["w"])
+    y = einsum("...d,df->...f", x, params["w"])
     if "b" in params:
         y = y + params["b"]
     return y
@@ -36,9 +48,54 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in float32, the normalised value cast back to ``x``'s
+    dtype before the scale (which never promotes the activations)."""
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * params["scale"].to(x.dtype)
+
+
 def layernorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32):
+    return {"table": torch.randn((vocab, d), generator=gen, dtype=dtype,
+                                 device=gen.device) * 0.02}
+
+
+def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, params["table"])
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 style logit soft-capping (``cap`` 0: none)."""
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh form, not torch's default erf form
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTIVATIONS = {"gelu": _gelu_tanh, "silu": F.silu, "relu": F.relu,
+                "tanh": torch.tanh}
+
+
+def activation(name: str):
+    return _ACTIVATIONS[name]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -64,6 +121,16 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
     if gated:
         p["w_gate"] = dense_init(gen, d_model, d_ff, dtype)["w"]
     return p
+
+
+def mlp(params, x: torch.Tensor, act_name: str = "gelu") -> torch.Tensor:
+    act = activation(act_name)
+    up = einsum("...d,df->...f", x, params["w_up"])
+    if "w_gate" in params:
+        h = act(einsum("...d,df->...f", x, params["w_gate"])) * up
+    else:
+        h = act(up)
+    return einsum("...f,fd->...d", h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------

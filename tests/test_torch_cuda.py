@@ -957,3 +957,71 @@ def test_cuda_leakage_census_equals_cpu():
         assert s["unmasked_collectives"] == 0 and s["cross_check_ok"], s
         assert s["collectives"] == s["sched_rounds"] > 0
         assert s["rounds"] == want[name]["rounds"]
+
+
+def _tree_to(tree, device):
+    """A copy of the tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "mixtral-8x22b", "falcon-mamba-7b",
+                                  "zamba2-2.7b", "internvl2-76b",
+                                  "seamless-m4t-medium"])
+def test_cuda_zoo_smoke_equals_cpu(name):
+    """One smoke architecture per family of the plaintext zoo (dense, MoE,
+    SSM, hybrid, VLM, enc-dec) on the card against the same call on the
+    CPU, from the same weights and inputs, TF32 off: ``apply``,
+    ``prefill`` and one ``decode_step`` (on both from the CPU's prefill
+    cache: a bfloat16 K/V rounded one ulp apart moves the logits by up to
+    3e-4) within 1e-4 (float32, other summation orders), 8 greedy tokens
+    (each from its own cache) equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, lm
+
+    cfg = configs.get(name + "-smoke")
+    model = encdec if cfg.family == "encdec" else lm
+    params = model.init(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    b, s, steps = 2, 24, 8
+    n_fe = cfg.n_frontend_tokens if cfg.frontend != "none" else 0
+    src = torch.randn((b, s, cfg.d_model), generator=gen)
+    fe = torch.randn((b, n_fe, cfg.d_model), generator=gen) if n_fe else None
+    tokens = torch.randint(0, cfg.vocab, (b, s - n_fe), generator=gen)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs, cpu_cache = {}, None
+        for dev in ("cpu", "cuda"):
+            p = _tree_to(params, dev)
+            step = serve.make_decode_step(cfg)
+            if cfg.family == "encdec":
+                first = tokens[:, :1].to(dev)
+                out = [encdec.apply(p, src.to(dev), tokens.to(dev), cfg)]
+                cache = serve.make_prefill_step(cfg, s + steps)(p, src.to(dev))
+                pos = 0
+            else:
+                first = tokens[:, -1:].to(dev)
+                ext = torch.cat([tokens, tokens[:, -1:]], dim=1).to(dev)
+                out = [lm.apply(p, ext, cfg, None if fe is None else fe.to(dev))]
+                lg, cache = serve.make_prefill_step(cfg, s + steps)(
+                    p, tokens.to(dev), None if fe is None else fe.to(dev))
+                out.append(lg)
+                pos = s
+            cpu_cache = _tree_to(cache, "cpu") if cpu_cache is None else cpu_cache
+            out.append(step(p, first, _tree_to(cpu_cache, dev), pos)[0])
+            greedy, _ = serve.greedy_decode_loop(p, cfg, cache, first, pos, steps)
+            outs[dev] = ([o.cpu() for o in out], greedy.cpu())
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for got, want in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-4), \
+            float((got - want).abs().max())
+    assert torch.equal(outs["cuda"][1], outs["cpu"][1]), \
+        (outs["cuda"][1].tolist(), outs["cpu"][1].tolist())

@@ -135,11 +135,18 @@ def test_registry_resolves_as_the_reference():
 
 
 def test_non_dense_family_rejected(one_block):
-    moe = dataclasses.replace(one_block.tcfg, family="moe")
+    """The MPC lowering refuses a non-dense family, as the reference's;
+    ``init`` builds that family's tree in the reference's layout."""
+    moe = dataclasses.replace(one_block.tcfg, family="moe", n_experts=4, top_k=2)
     with pytest.raises(ValueError, match="dense"):
         tlm.mpc_reference(one_block.tparams, torch.zeros((1, SEQ, 64)), moe)
-    with pytest.raises(ValueError, match="queue 1, item 11"):
-        tlm.init(moe, torch.Generator().manual_seed(0))
+    got = tlm.init(moe, torch.Generator().manual_seed(0))
+    want = jax.eval_shape(lambda k: jlm.init(k, dataclasses.replace(
+        one_block.jcfg, family="moe", n_experts=4, top_k=2)), jax.random.PRNGKey(0))
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert (tuple(g.shape), str(g.dtype).split(".")[-1]) == (w.shape, w.dtype.name)
+    assert got["layers"]["moe"]["w_up"].shape == (1, 4, 64, 128)
 
 
 def test_init_tree_matches_the_reference_layout(one_block):

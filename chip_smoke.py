@@ -241,7 +241,32 @@ Phases (any failure raises, and the script exits non-zero):
    256 stub vision tokens before them), 4 decode steps, finite logits of
    the reference's shapes, decode against ``apply`` reported, and for the
    dense and SSM families required on a float32 copy of the same weights.
-   Each time is printed beside the card's name and power limit.
+   Each time is printed beside the card's name and power limit;
+18. train: the training path (``launch.train``'s ``make_train_step`` over
+   ``models.lm`` under autograd with the config's per-layer remat,
+   ``train.optimizer``'s AdamW, ``data.TokenPipeline``, ``train.loop``;
+   plain torch ops, none of the port's kernels, which the phase checks),
+   seeded weights (``train_phase``): (a) Qwen1.5-0.5B at full width and
+   depth (619 446 272 params, float32 masters, bfloat16 compute, remat
+   "dots"), ``TRAIN_SHAPE`` = 4 x 512 tokens a step: one warm-up step,
+   then ``TRAIN_STEPS`` synchronized steps (losses finite; median wall,
+   tokens/s, peak memory), one step under torch.profiler (busy share,
+   device ops) and one under cProfile (host time by function), the
+   model-FLOP fraction of the median step (6·N·D
+   against ``runtime.roofline``'s 989.4 TFLOP/s) and ``op_analyzer``'s
+   FLOPs of one step beside 6·N·D, one step each under remat "none" and
+   "full" (wall, peak memory); (b) the same step twice from one state
+   under ``torch.use_deterministic_algorithms(True)``: params, moments and
+   loss bitwise equal; (c) the same model at depth 2 in float32 (TF32
+   off), 2 x 64 tokens, one loss and gradient on the card and on the
+   host's CPU: the loss within ``TRAIN_LOSS_RTOL``, every gradient leaf
+   within ``TRAIN_GRAD_REL`` of its largest CPU magnitude; then one step
+   with 2 microbatches against 1 on the card (``tests/test_system.py``'s
+   tolerance); (d) the reference's restart test on the card: the
+   ``-smoke`` model at 2 layers trained 8 steps straight, and again with a
+   checkpoint at 4 and a failure injected at 6 then resumed (from 4):
+   params bitwise equal; the card's checkpoint restored onto the CPU
+   bitwise equal too.
 
 Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
@@ -258,7 +283,11 @@ import subprocess
 import sys
 import time
 
-import torch
+# cuBLAS is bitwise reproducible only with a fixed workspace, which must be
+# set before CUDA initialises (the train phase's determinism check)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3992,6 +4021,290 @@ def zoo_phase(smi: str):
     return record
 
 
+# ---------------------------------------------------------------------------
+# train: the training path (no kernel of the port's own)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_PARAMS = 619446272        # the config's param_count at full width
+TRAIN_SHAPE = (4, 512)          # (a): batch, tokens per sequence
+TRAIN_STEPS = 6                 # (a): timed steps after one warm-up step
+TRAIN_F32 = (2, 2, 64)          # (c): depth, batch, tokens per sequence
+# (c): card vs CPU in float32, stated before the first run: the loss
+# within 1e-5 relative, each gradient leaf's max |diff| within 1e-4 of the
+# leaf's largest CPU magnitude (summation orders differ, TF32 off)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+# (c): microbatches 2 against 1, tests/test_system.py's tolerance
+TRAIN_MICRO_TOL = {"loss_rtol": 1e-4, "atol": 1e-4, "rtol": 1e-3}
+TRAIN_RESTART = (8, 4, 6)       # (d): total steps, checkpoint every, fail at
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.train.optimizer import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _train_step_timed(step_fn, state, batch):
+    """(new state, loss, synchronized seconds) of one step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    return state, loss, time.perf_counter() - t0
+
+
+def _peak_of(fn):
+    """(fn(), peak bytes allocated while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def train_main(smi: str):
+    """(a) and (b): full-width, full-depth Qwen1.5-0.5B steps."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as train_lib
+    from repro_torch.runtime import op_analyzer, roofline
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = zoo_cfg(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE
+    opt = opt_lib.AdamW()
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=s, batch=b)
+    base = torch.cuda.memory_allocated()    # what earlier phases still hold
+    state = train_lib.init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(0))
+    n_leaves = sum(p.numel() for p in opt_lib.tree_leaves(state.params))
+    if cfg.param_count() != TRAIN_PARAMS:
+        raise AssertionError(f"train: {cfg.name} counts {cfg.param_count()} params")
+    batches = [pipe.batch_at(i, device="cuda") for i in range(TRAIN_STEPS + 1)]
+    step_fn = train_lib.make_train_step(cfg, opt)
+    state, loss0, warm_s = _train_step_timed(step_fn, state, batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [loss0], []
+    for batch in batches[1:]:
+        state, loss, wall = _train_step_timed(step_fn, state, batch)
+        losses.append(loss)
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        raise AssertionError(f"train (a): losses {losses}")
+    median = statistics.median(walls)
+    shape = ShapeConfig("chip_smoke_train", s, b, "train")
+    mflops = roofline.model_flops(cfg, shape)
+    batch = batches[-1]
+    prof = _profiled(lambda: step_fn(state, batch), again=True)
+    host = host_profile(lambda: step_fn(state, batch))
+    counted = op_analyzer.analyze(step_fn, state, batch)
+    terms = roofline.roofline_terms(cfg, shape, counted, 1)
+    remat = {}
+    for mode in ("none", "full"):
+        fn = train_lib.make_train_step(dataclasses.replace(cfg, remat=mode), opt)
+        # the new state is dropped inside, so no mode's result outlives it
+        (loss, wall), peak_r = _peak_of(lambda: _train_step_timed(fn, state, batch)[1:])
+        remat[mode] = {"wall_s": wall, "peak_bytes": peak_r - base, "loss": loss}
+    a = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+         "remat": cfg.remat, "params": cfg.param_count(), "param_elements": n_leaves,
+         "batch": b, "seq": s, "losses": losses, "warmup_s": warm_s,
+         "step_s": walls, "step_median_s": median, "tokens_per_s": b * s / median,
+         "peak_bytes": peak - base, "held_before_bytes": base, "profile": prof,
+         "host_profile": host,
+         "model_flops": mflops,
+         "model_flop_bound_s": mflops / roofline.PEAK_FLOPS,
+         "model_flop_fraction": roofline.model_flop_fraction(mflops, median),
+         "op_analyzer": {"flops": counted.flops, "bytes": counted.bytes,
+                         "collective_bytes": counted.collective_bytes,
+                         "ops": sum(counted.op_counts.values()),
+                         "flops_over_6nd": counted.flops / mflops},
+         "roofline": terms, "remat_other": remat}
+    print(f"train (a) {cfg.name} full width and depth ({cfg.n_layers} layers, "
+          f"{cfg.param_count()} params, float32 masters, {cfg.dtype} compute, remat "
+          f"{cfg.remat!r}), AdamW, {b} x {s} tokens a step, seeded weights [{smi}]: "
+          f"losses {[round(x, 4) for x in losses]}; warm-up step {warm_s:.3f} s; "
+          f"{TRAIN_STEPS} synchronized steps median {median * 1e3:.2f} ms (min "
+          f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}) = "
+          f"{a['tokens_per_s']:.0f} tokens/s; peak {peak - base} B allocated above "
+          f"the {base} B held before the phase; one step "
+          f"profiled: device busy {prof['device_busy_share']:.3f} of "
+          f"{prof['span_s'] * 1e3:.1f} ms, {prof['device_ops']} device ops, top "
+          f"{prof['top_device_ops_us'][:3]}; one step under cProfile "
+          f"{host['total_s']:.3f} s of host time, top {host['top'][:4]}; "
+          f"6·N·D = {mflops:.4g} FLOP, bound "
+          f"{a['model_flop_bound_s'] * 1e3:.3f} ms at {roofline.PEAK_FLOPS:.4g} FLOP/s "
+          f"({roofline.CARD}): model-FLOP fraction {a['model_flop_fraction']:.4f}; "
+          f"op_analyzer: {counted.flops:.4g} FLOP ({a['op_analyzer']['flops_over_6nd']:.3f}"
+          f" x 6·N·D), {counted.bytes:.4g} B, {a['op_analyzer']['ops']} aten ops, "
+          f"dominant {terms['dominant']}; one step each (peak above the same base): "
+          f"remat 'none' {remat['none']['wall_s'] * 1e3:.2f} ms, peak "
+          f"{remat['none']['peak_bytes']} B; 'full' {remat['full']['wall_s'] * 1e3:.2f} "
+          f"ms, peak {remat['full']['peak_bytes']} B", flush=True)
+
+    # (b) the same step twice from one state, deterministic algorithms on
+    torch.use_deterministic_algorithms(True)
+    try:
+        s1, m1 = step_fn(state, batch)
+        s2, m2 = step_fn(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    det = {"params_equal": _tree_equal(s1.params, s2.params),
+           "opt_state_equal": _tree_equal(s1.opt_state, s2.opt_state),
+           "loss_equal": bool(torch.equal(m1["loss"], m2["loss"])),
+           "params_moved": not _tree_equal(s1.params, state.params),
+           "loss": float(m1["loss"])}
+    print(f"train (b) {cfg.name} full width, one step twice from one state under "
+          f"torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG="
+          f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')} [{smi}]: {det}", flush=True)
+    if not all(det[k] for k in ("params_equal", "opt_state_equal", "loss_equal",
+                                "params_moved")):
+        raise AssertionError(f"train (b): not bitwise deterministic {det}")
+    return a, det
+
+
+def train_card_vs_cpu(smi: str):
+    """(c): depth 2, float32: loss and gradients card against CPU; then
+    microbatches 2 against 1 on the card."""
+    import dataclasses
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_lib
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train (c): TF32 must be off")
+    depth, b, s = TRAIN_F32
+    cfg = dataclasses.replace(zoo_cfg(TRAIN_ARCH, depth), dtype="float32")
+    params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(3))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=s, batch=b).batch_at(0, device="cuda")
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = opt_lib.tree_map(lambda t: t.to(where, copy=True).requires_grad_(True), params)
+        x = {k: v.to(where) for k, v in batch.items()}
+        (loss, grads), wall = _synced(lambda: train_lib.value_and_grad(p, x, cfg), where)
+        out[where] = (float(loss), [g.detach().cpu() for g in grads], wall)
+        del p, grads
+    (l_card, g_card, w_card), (l_cpu, g_cpu, w_cpu) = out["cuda"], out["cpu"]
+    worst = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                for a, c in zip(g_card, g_cpu))
+    c = {"depth": depth, "batch": b, "seq": s, "loss_card": l_card, "loss_cpu": l_cpu,
+         "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu), "grad_leaves": len(g_cpu),
+         "worst_grad_rel_err": worst, "card_s": w_card, "cpu_s": w_cpu,
+         "tol": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL}}
+    c["ok"] = c["loss_rel_err"] <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_REL
+    del out, g_card, g_cpu
+
+    # microbatches 2 against 1, SGD without momentum (the reference's test)
+    cfg_n = dataclasses.replace(cfg, remat="none")
+    sgd = opt_lib.SGD(schedule=opt_lib.Schedule(peak_lr=0.1, warmup_steps=0,
+                                                decay_steps=0), momentum=0.0)
+    state = train_lib.TrainState(params, sgd.init(params), torch.zeros((), dtype=torch.int32))
+    s1, m1 = train_lib.make_train_step(cfg_n, sgd, 1)(state, batch)
+    s2, m2 = train_lib.make_train_step(cfg_n, sgd, 2)(state, batch)
+    tol = TRAIN_MICRO_TOL
+    micro_err = max(float((x - y).abs().max()) for x, y in
+                    zip(opt_lib.tree_leaves(s1.params), opt_lib.tree_leaves(s2.params)))
+    c["micro"] = {"loss_1": float(m1["loss"]), "loss_2": float(m2["loss"]),
+                  "params_max_abs_diff": micro_err,
+                  "ok": abs(float(m1["loss"]) - float(m2["loss"]))
+                  <= tol["loss_rtol"] * abs(float(m1["loss"])) and all(
+                      bool(torch.allclose(x, y, atol=tol["atol"], rtol=tol["rtol"]))
+                      for x, y in zip(opt_lib.tree_leaves(s1.params),
+                                      opt_lib.tree_leaves(s2.params)))}
+    print(f"train (c) {cfg.name} full width, depth {depth}, float32, TF32 off, "
+          f"{b} x {s} tokens [{smi}]: loss card {l_card:.8f} CPU {l_cpu:.8f} (rel "
+          f"{c['loss_rel_err']:.3g}, limit {TRAIN_LOSS_RTOL}); worst of "
+          f"{c['grad_leaves']} gradient leaves max |diff| / max |CPU| "
+          f"{worst:.3g} (limit {TRAIN_GRAD_REL}); card {w_card:.3f} s, CPU "
+          f"{w_cpu:.3f} s; microbatches 2 vs 1: loss {c['micro']['loss_2']:.8f} vs "
+          f"{c['micro']['loss_1']:.8f}, params max |diff| {micro_err:.3g} "
+          f"(tolerance {tol})", flush=True)
+    if not (c["ok"] and c["micro"]["ok"]):
+        raise AssertionError(f"train (c): {c}")
+    return c
+
+
+def train_restart(smi: str):
+    """(d): the reference's restart test on the card."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import loop as loop_lib, optimizer as opt_lib
+
+    cfg = dataclasses.replace(zoo_cfg(TRAIN_ARCH + "-smoke"), n_layers=2)
+    total, every, fail = TRAIN_RESTART
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, batch=4)
+    opt = opt_lib.AdamW()
+    base = os.path.join(ROOT, "build", "train_restart")
+    shutil.rmtree(base, ignore_errors=True)
+    straight, broken = os.path.join(base, "straight"), os.path.join(base, "broken")
+    t0 = time.perf_counter()
+    rep1 = loop_lib.run(cfg, pipe, loop_lib.LoopConfig(
+        total_steps=total, ckpt_every=100, ckpt_dir=straight, async_ckpt=False),
+        optimizer=opt, device="cuda")
+    lc = loop_lib.LoopConfig(total_steps=total, ckpt_every=every, ckpt_dir=broken,
+                             async_ckpt=False)
+    try:
+        loop_lib.run(cfg, pipe, lc, optimizer=opt, hooks={"fail_at": fail},
+                     device="cuda")
+        raise AssertionError("train (d): the injected failure did not raise")
+    except RuntimeError as e:
+        failure = str(e)
+    rep2 = loop_lib.run(cfg, pipe, lc, optimizer=opt, device="cuda")
+    s1, _ = loop_lib.elastic_restore(straight, cfg, opt, device="cuda")
+    s2, _ = loop_lib.elastic_restore(broken, cfg, opt, device="cuda")
+    on_cpu, _ = loop_lib.elastic_restore(broken, cfg, opt, device="cpu")
+    d = {"arch": cfg.name, "layers": cfg.n_layers, "failure": failure,
+         "resumed_from": rep2.resumed_from, "final_step": rep2.final_step,
+         "losses_straight": rep1.losses, "losses_resumed": rep2.losses,
+         "params_equal": _tree_equal(s1.params, s2.params),
+         "opt_state_equal": _tree_equal(s1.opt_state, s2.opt_state),
+         "cpu_restore_equal": _tree_equal(
+             opt_lib.tree_map(lambda t: t.cpu(), s2.params), on_cpu.params),
+         "cpu_restore_device": str(opt_lib.tree_leaves(on_cpu.params)[0].device),
+         "wall_s": time.perf_counter() - t0}
+    print(f"train (d) {cfg.name} at {cfg.n_layers} layers on the card [{smi}]: "
+          f"{total} steps straight against checkpoint every {every}, failure at "
+          f"{fail} ({failure!r}), resumed from {rep2.resumed_from}: params equal "
+          f"{d['params_equal']}, moments equal {d['opt_state_equal']}; the card's "
+          f"checkpoint restored onto {d['cpu_restore_device']} equal "
+          f"{d['cpu_restore_equal']}; {d['wall_s']:.2f} s", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+    if not (d["resumed_from"] == every and d["final_step"] == total
+            and d["params_equal"] and d["opt_state_equal"] and d["cpu_restore_equal"]):
+        raise AssertionError(f"train (d): {d}")
+    return d
+
+
+def train_phase(smi: str):
+    """The training path on the card (phase 18 of the docstring); the port's
+    kernel counters zeroed before and read after: none may launch."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    record = {"card": smi}
+    record["a"], record["b"] = train_main(smi)
+    torch.cuda.empty_cache()
+    record["c"] = train_card_vs_cpu(smi)
+    torch.cuda.empty_cache()
+    record["d"] = train_restart(smi)
+    counts = ops.launch_counts()
+    record["launches"] = counts
+    if any(counts.values()):
+        raise AssertionError(f"train: the path launched the port's kernels {counts}")
+    return record
+
+
 PHASE_S: dict = {}
 
 
@@ -4048,6 +4361,8 @@ def main() -> None:
     mesh_rows = _phase("mesh-kernels", mesh_kernel_phase)
     torch.cuda.empty_cache()
     zoo = _phase("zoo", zoo_phase, smi)
+    torch.cuda.empty_cache()
+    train = _phase("train", train_phase, smi)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
                          ("frontend", front_launches), ("seed-oracle", seed_launches),
                          ("deploy", deploy_launches), ("mesh", mesh_launches)):
@@ -4077,7 +4392,7 @@ def main() -> None:
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
                    "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
-                   "analysis": analysis, "zoo": zoo,
+                   "analysis": analysis, "zoo": zoo, "train": train,
                    "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))

@@ -12,14 +12,20 @@ same dict as JSON, so the package needs nothing beyond numpy and torch.
 ``arrays.npz`` holds the same leaves under the same keys.
 
 A tree is walked as the reference's pytrees are: dict values in sorted key
-order, lists and tuples in order, None an empty subtree.  A torch tensor is
-saved as its numpy view and restored as a tensor on the template leaf's
-device; any other leaf comes back as a numpy array.  The async writer
-copies every leaf to the host on the caller's thread and serializes on a
-worker.
+order, lists and tuples in order, None an empty subtree, a dataclass (the
+training loop's ``TrainState``) by its fields in declaration order, each
+field's path segment ``.name`` as jax's ``GetAttrKey`` prints it.  A torch
+tensor is saved as its numpy view and restored as a tensor on the
+template leaf's device; a bfloat16 tensor, which numpy cannot hold, is
+saved as its raw 2-byte words (``V2``, the bytes the reference's store
+writes for its bfloat16 leaves) under the manifest dtype ``bfloat16``,
+and restored bit for bit.  Any other leaf comes back as a numpy array.
+The async writer copies every leaf to the host on the caller's thread and
+serializes on a worker.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -40,6 +46,9 @@ def _flatten(tree, path: Tuple = ()) -> Tuple[List[Any], List[str]]:
         items = [(k, tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
+    elif _is_dataclass(tree):
+        items = [("." + f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
     else:
         return [tree], ["/".join(str(p) for p in path)]
     leaves, paths = [], []
@@ -59,13 +68,38 @@ def _unflatten(tree, leaves):
         return {k: filled[k] for k in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
+    if _is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _unflatten(getattr(tree, f.name),
+                                                               leaves)
+                                            for f in dataclasses.fields(tree)})
     return next(leaves)
 
 
+def _is_dataclass(x) -> bool:
+    return dataclasses.is_dataclass(x) and not isinstance(x, type)
+
+
+_BF16 = np.dtype("V2")
+
+
 def _host(x) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor as its raw 2-byte words."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == _BF16 else str(a.dtype)
+
+
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    if arr.dtype == _BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _manifest_path(d: Path) -> Path:
@@ -87,7 +121,7 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None):
         "step": step,
         "paths": paths,
         "shapes": [list(a.shape) for a in arrays.values()],
-        "dtypes": [str(a.dtype) for a in arrays.values()],
+        "dtypes": [_dtype_name(a) for a in arrays.values()],
         "extra": extra or {},
         "time": time.time(),
     }
@@ -143,7 +177,7 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None):
         for i, ref in enumerate(leaves):
             arr = data[str(i)]
             if isinstance(ref, torch.Tensor):
-                out.append(torch.from_numpy(arr).to(ref.device))
+                out.append(_tensor(arr, ref.device))
             else:
                 out.append(arr)
     return _unflatten(tree_like, iter(out)), manifest

@@ -17,7 +17,9 @@ reference therefore needs the same generator.  This module follows
                      uniform u in (-1, 1) (torch's erfinv is not XLA's: equal
                      to within a few float32 ulps, not bit for bit);
 - ``permutation``  = ``random.permutation(key, n)``: ``_shuffle``'s rounds
-                     of split, 32-bit sort keys and a stable sort.
+                     of split, 32-bit sort keys and a stable sort;
+- ``randint``      = ``random.randint`` (int32): two bit sets from a split
+                     key, combined mod the span with uint32 wrap-around.
 
 A key is an int64 tensor of shape (..., 2) holding two 32-bit words.  All
 arithmetic runs in int64 masked to 32 bits (torch has no ``uint32`` shifts
@@ -153,3 +155,23 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         key, sub = split(key)
         x = x[torch.argsort(bits(sub, (n,)), stable=True)]
     return x
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``, bit for
+    bit, as int64 values in ``[minval, maxval)``: ``split(key)``, 32 bits
+    from each half, then ``(hi % span) * (2^32 % span) + lo % span`` mod
+    the span, every product and sum wrapping at 32 bits as jax's uint32
+    does (so the draw is jax's, bias included).  ``maxval <= minval``
+    gives ``minval``; bounds outside int32 raise, as jax's do."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
+        raise OverflowError(f"randint bounds {minval}, {maxval} outside int32")
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = (maxval - minval) if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK32) % span
+    offset = ((((higher % span) * mult) & MASK32) + lower % span) & MASK32
+    out = (minval + offset % span) & MASK32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out)

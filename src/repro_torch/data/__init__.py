@@ -1,6 +1,5 @@
-"""Deterministic synthetic data (twin of the reference's ``repro.data``;
-``TokenPipeline`` is not ported yet)."""
+"""Deterministic synthetic data (twin of the reference's ``repro.data``)."""
 from . import pipeline
-from .pipeline import ImagePipeline
+from .pipeline import ImagePipeline, TokenPipeline
 
-__all__ = ["pipeline", "ImagePipeline"]
+__all__ = ["pipeline", "ImagePipeline", "TokenPipeline"]

@@ -1,20 +1,49 @@
-"""Deterministic synthetic images (twin of the reference's
-``data/pipeline.py`` ``ImagePipeline``).
+"""Deterministic synthetic data pipelines (twin of the reference's
+``data/pipeline.py``).
 
-Every batch is a pure function of (seed, offset), drawn with the port's
-jax-identical threefry: the labels equal the reference's exactly, the
-images to within ``prng.normal``'s tolerance (torch's erfinv is not
-XLA's).
+Every batch is a pure function of (seed, step), drawn with the port's
+jax-identical threefry, so checkpoint/restart never replays or skips
+data: ``TokenPipeline``'s tokens and labels equal the reference's
+exactly; ``ImagePipeline``'s labels exactly, its images to within
+``prng.normal``'s tolerance (torch's erfinv is not XLA's).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from ..core import prng
 from ..device import Device, resolve as resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipeline:
+    """Synthetic LM corpus: a fixed random stream in which every odd
+    position repeats its predecessor plus one (mod vocab), so cross-entropy
+    demonstrably falls during training."""
+
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int, device: Device = None) -> Dict[str, torch.Tensor]:
+        """{"tokens", "labels"}: (batch, seq_len) int64 on ``device``
+        (default the GPU); labels are the next token, -1 at the last
+        position."""
+        device = resolve_device(device)
+        key = prng.fold_in(prng.PRNGKey(self.seed, device), step)
+        k1, _ = prng.split(key)
+        base = prng.randint(k1, (self.batch, self.seq_len), 0, self.vocab)
+        shifted = torch.roll(base, 1, dims=1)
+        odd = (torch.arange(self.seq_len, device=device) % 2).bool()
+        tokens = torch.where(odd, (shifted + 1) % self.vocab, base)
+        labels = torch.cat([tokens[:, 1:], torch.full((self.batch, 1), -1,
+                                                       dtype=tokens.dtype,
+                                                       device=device)], dim=1)
+        return {"tokens": tokens, "labels": labels}
 
 
 @dataclasses.dataclass(frozen=True)

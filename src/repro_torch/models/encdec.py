@@ -19,8 +19,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import Device, resolve as resolve_device
 from ..nn import attention, common
-from .lm import (_dtype, _layer, _norm, _norm_init, _stack, padded_vocab,
-                 params_from_jax)
+from .lm import (_dtype, _layer, _layers, _norm, _norm_init, _stack,
+                 padded_vocab, params_from_jax)
 
 __all__ = ["init", "encode", "apply", "init_cache", "prefill", "decode_step",
            "params_from_jax"]
@@ -111,8 +111,7 @@ def encode(params, src_embeds, cfg: ArchConfig):
     """src_embeds: (B, S_src, D) stub frame embeddings -> encoder memory."""
     h = src_embeds + _sin_posenc(src_embeds.shape[1], cfg.d_model,
                                  src_embeds.dtype, src_embeds.device)
-    for l in range(cfg.n_enc_layers):
-        p = _layer(params["enc_layers"], l)
+    for p in _layers(params["enc_layers"], cfg.n_enc_layers):
         h = h + _self_attn_full(cfg, p["attn"], _norm(cfg, p["ln1"], h), causal=False)
         h = h + common.mlp(p["mlp"], _norm(cfg, p["ln2"], h), cfg.act)
     return _norm(cfg, params["enc_norm"], h)
@@ -124,8 +123,8 @@ def _memory_kv(params, memory, cfg: ArchConfig):
     b, s, _ = memory.shape
     shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        xp = _layer(params["dec_layers"], l)["xattn"]
+    for p in _layers(params["dec_layers"], cfg.n_layers):
+        xp = p["xattn"]
         ks.append(common.dense(xp["wk"], memory).reshape(shape))
         vs.append(common.dense(xp["wv"], memory).reshape(shape))
     return torch.stack(ks), torch.stack(vs)
@@ -143,10 +142,9 @@ def apply(params, src_embeds, tgt_tokens, cfg: ArchConfig):
     mem_k, mem_v = _memory_kv(params, memory, cfg)
     h = common.embed(params["embed"], tgt_tokens)
     h = h + _sin_posenc(h.shape[1], cfg.d_model, h.dtype, h.device)
-    for l in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], l)
+    for l, p in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
         h = _dec_block(cfg, p, h,
-                       lambda x: _self_attn_full(cfg, p["attn"], x, causal=True),
+                       lambda x, p=p: _self_attn_full(cfg, p["attn"], x, causal=True),
                        mem_k[l], mem_v[l])
     h = _norm(cfg, params["final_norm"], h)
     return common.dense(params["lm_head"], h)

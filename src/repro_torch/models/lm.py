@@ -11,7 +11,8 @@ param set) before each, so its KV cache exists for n_layers/attn_every
 slots only.
 
 Plaintext modes:
-  apply        - full-sequence forward
+  apply        - full-sequence forward (training, under autograd, with the
+                 config's remat policy per layer; serving without)
   prefill      - forward + KV/SSM cache construction (serving)
   decode_step  - one token with the cache updated in place (serving)
 
@@ -34,7 +35,8 @@ client-side in the clear.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -86,6 +88,17 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _layers(tree, n: int) -> List[Any]:
+    """The ``n`` per-layer trees of a stacked tree, one ``unbind`` per leaf
+    (views): under autograd each leaf's gradient is one stack of the
+    layers', where indexing would add a full-size zero-padded gradient
+    per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _set_layer(tree, i: int, new) -> None:
@@ -234,6 +247,52 @@ def _mamba_decode(cfg: ArchConfig, p, h, state):
     return h + y, st
 
 
+_REMAT = ("none", "full", "dots", "dots_all")
+
+
+def _remat_policy(name: str):
+    """The selective-checkpoint policy of ``cfg.remat`` (jax's checkpoint
+    policies): "dots_all" saves every matmul's output (``dots_saveable``),
+    "dots" only those of matmuls without batch dims
+    (``dots_with_no_batch_dims_saveable``); the rest is recomputed.
+    ``common.einsum`` reaches ``aten.bmm`` for projections and attention
+    alike, a projection with a batch extent of 1 (its batch dims are the
+    contraction's free dims), so "dots" tells them apart by that extent: a
+    product whose only batch dims have extent 1 (a batch of one sequence
+    with one KV head) counts as unbatched."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    unbatched = {aten.mm.default, aten.addmm.default}
+    batched = {aten.bmm.default: 0, aten.baddbmm.default: 1}   # the batch1 arg
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in unbatched or (op in batched and (
+                name == "dots_all" or args[batched[op]].shape[0] == 1)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _maybe_remat(cfg: ArchConfig, fn: Callable) -> Callable:
+    """``fn`` (one layer) under ``torch.utils.checkpoint`` as ``cfg.remat``
+    says (the reference's ``jax.checkpoint`` policies): "full" saves only
+    the layer's inputs, "dots" / "dots_all" also the matmul outputs their
+    policy keeps.  "none", or no autograd, runs ``fn`` as it is."""
+    if cfg.remat not in _REMAT:
+        raise ValueError(f"remat {cfg.remat!r} is none of {_REMAT}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat != "full":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _remat_policy(cfg.remat))
+    return lambda *args: ckpt.checkpoint(fn, *args, **kw)
+
+
 def _segments(cfg: ArchConfig):
     """The hybrid's (lo, hi) layer ranges, one per shared-attention slot."""
     per = cfg.attn_every
@@ -265,10 +324,12 @@ def apply(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     if cfg.family == "hybrid" and cfg.attn_every:
         h = _hybrid_forward(params, h, cfg)
     else:
-        for l in range(cfg.n_layers):
-            p = _layer(params["layers"], l)
-            h = (_attn_mlp_block(cfg, p, h, l) if cfg.family in ("dense", "moe", "vlm")
-                 else _mamba_block(cfg, p, h))
+        for l, p in enumerate(_layers(params["layers"], cfg.n_layers)):
+            if cfg.family in ("dense", "moe", "vlm"):
+                block = functools.partial(_attn_mlp_block, cfg, idx=l)
+            else:
+                block = functools.partial(_mamba_block, cfg)
+            h = _maybe_remat(cfg, block)(p, h)
     return _logits(params, cfg, h)
 
 
@@ -276,11 +337,13 @@ def _hybrid_forward(params, h, cfg: ArchConfig):
     """zamba2: the shared attention block before each segment of mamba2
     layers."""
     sa = params["shared_attn"]
+    layers = _layers(params["layers"], cfg.n_layers)
+    block = _maybe_remat(cfg, functools.partial(_mamba_block, cfg))
     for lo, hi in _segments(cfg):
         h = h + attention.attention(sa["attn"], _norm(cfg, sa["ln"], h),
                                     **_attn_kwargs(cfg))
         for l in range(lo, hi):
-            h = _mamba_block(cfg, _layer(params["layers"], l), h)
+            h = block(layers[l], h)
     return h
 
 

@@ -1,5 +1,5 @@
-"""Training pieces of the port (twin of part of the reference's
-``repro.train``): the optimizer that the search's finetune uses."""
-from . import optimizer
+"""Training (twin of the reference's ``repro.train``): the optimizers and
+the fault-tolerant loop."""
+from . import loop, optimizer
 
-__all__ = ["optimizer"]
+__all__ = ["loop", "optimizer"]

@@ -2,20 +2,25 @@
 
 Mirrors the reference's ``tests/test_fault_tolerance.py`` cases of the
 store (``checkpoint_roundtrip``, ``uncommitted_checkpoint_ignored``,
-``async_checkpointer``; the training cases wait for the port's training
-loop).  The on-disk format differs in the manifest only (JSON, not
+``async_checkpointer``; its training cases are in
+``tests/test_torch_train.py``), and holds a training state (a dataclass
+walked by its fields) with a bfloat16 leaf against the reference's store:
+the same paths, dtypes and ``arrays.npz`` bytes, restored bit for bit.  The on-disk format differs in the manifest only (JSON, not
 msgpack), so the reference's leaves and paths are compared too: the same
 tree saved by both stores gives the same ``arrays.npz`` keys and arrays
 and the same leaf paths, shapes and dtypes."""
 import json
 
 import jax.numpy as jnp
+import ml_dtypes
 import msgpack
 import numpy as np
 import torch
 
 from repro.checkpoint import store as jstore
+from repro.launch import train as jtrain
 from repro_torch.checkpoint import store
+from repro_torch.launch import train as ttrain
 
 
 def _tree():
@@ -83,3 +88,69 @@ def test_prune_keeps_the_last_three_committed(tmp_path):
     assert kept == ["step_00000003", "step_00000004", "step_00000005"]
     out, _ = store.restore(str(tmp_path), [torch.zeros(2)], step=4)
     assert torch.equal(out[0], torch.full((2,), 4.0))
+
+
+def _bf16_state():
+    """A port TrainState and the reference's, the same values: a float32
+    and a bfloat16 param (values exact in bfloat16), AdamW-like moments,
+    the step."""
+    w = np.linspace(-3.0, 3.0, 12, dtype=np.float32).reshape(3, 4)
+    h = np.array([1.5, -0.0, 2.0 ** -130, 65280.0, np.inf, -7.25], np.float32)
+    port = ttrain.TrainState(
+        params={"w": torch.from_numpy(w), "h": torch.from_numpy(h).to(torch.bfloat16)},
+        opt_state={"m": {"w": torch.from_numpy(w * 0.5), "h": torch.zeros(6)},
+                   "v": {"w": torch.from_numpy(w * w), "h": torch.ones(6)}},
+        step=torch.tensor(7, dtype=torch.int32))
+    ref = jtrain.TrainState(
+        params={"w": jnp.asarray(w), "h": jnp.asarray(h.astype(ml_dtypes.bfloat16))},
+        opt_state={"m": {"w": jnp.asarray(w * 0.5), "h": jnp.zeros(6)},
+                   "v": {"w": jnp.asarray(w * w), "h": jnp.ones(6)}},
+        step=jnp.asarray(7, jnp.int32))
+    return port, ref
+
+
+def test_train_state_with_bfloat16_leaf_round_trips_as_the_reference(tmp_path):
+    port, ref = _bf16_state()
+    store.save(str(tmp_path / "port"), 3, port)
+    jstore.save(str(tmp_path / "ref"), 3, ref)
+    tdir, jdir = tmp_path / "port" / "step_00000003", tmp_path / "ref" / "step_00000003"
+    tman = json.loads((tdir / "manifest.json").read_text())
+    jman = msgpack.unpackb((jdir / "manifest.msgpack").read_bytes())
+    assert tman["paths"] == jman["paths"] == [
+        ".params/h", ".params/w", ".opt_state/m/h", ".opt_state/m/w",
+        ".opt_state/v/h", ".opt_state/v/w", ".step"]
+    assert tman["dtypes"] == jman["dtypes"] and tman["dtypes"][0] == "bfloat16"
+    assert tman["shapes"] == jman["shapes"]
+    with np.load(tdir / "arrays.npz") as a, np.load(jdir / "arrays.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+
+    template = ttrain.TrainState(
+        params={"w": torch.zeros(3, 4), "h": torch.zeros(6, dtype=torch.bfloat16)},
+        opt_state={"m": {"w": torch.zeros(3, 4), "h": torch.zeros(6)},
+                   "v": {"w": torch.zeros(3, 4), "h": torch.zeros(6)}},
+        step=torch.zeros((), dtype=torch.int32))
+    for d in (tmp_path / "port", tmp_path / "ref"):     # the reference's too
+        if d.name == "ref":                              # (JSON manifest beside)
+            (d / "step_00000003" / "manifest.json").write_text(json.dumps(jman))
+        out, manifest = store.restore(str(d), template)
+        assert isinstance(out, ttrain.TrainState) and manifest["step"] == 3
+        assert out.params["h"].dtype == torch.bfloat16
+        assert torch.equal(out.params["h"].view(torch.int16),
+                           port.params["h"].view(torch.int16))
+        assert torch.equal(out.params["w"], port.params["w"])
+        assert torch.equal(out.opt_state["v"]["w"], port.opt_state["v"]["w"])
+        assert out.step.dtype == torch.int32 and int(out.step) == 7
+
+
+def test_async_checkpointer_takes_a_train_state(tmp_path):
+    port, _ = _bf16_state()
+    ck = store.AsyncCheckpointer(str(tmp_path))
+    ck.save(9, port, {"loss": 1.5})
+    ck.wait()
+    out, manifest = store.restore(str(tmp_path), port)
+    assert manifest["extra"] == {"loss": 1.5}
+    assert torch.equal(out.params["h"].view(torch.int16),
+                       port.params["h"].view(torch.int16))
+    assert int(out.step) == 7

@@ -1025,3 +1025,57 @@ def test_cuda_zoo_smoke_equals_cpu(name):
             float((got - want).abs().max())
     assert torch.equal(outs["cuda"][1], outs["cpu"][1]), \
         (outs["cuda"][1].tolist(), outs["cpu"][1].tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_equals_cpu_and_checkpoint_restores_on_the_cpu(tmp_path):
+    """A smoke train step (qwen1.5-0.5b-smoke, 2 layers, float32, remat
+    "dots", AdamW) on the card against the same step on the CPU: loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its largest CPU
+    magnitude (chip_smoke.py's train phase (c) tolerances), none of the
+    port's kernels launched; then the card's checkpoint of the new state
+    restored onto the CPU, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as train_lib
+    from repro_torch.train import loop as loop_lib, optimizer as opt_lib
+
+    cfg = dataclasses.replace(configs.get("qwen1.5-0.5b-smoke"), n_layers=2, remat="dots")
+    opt = opt_lib.AdamW()
+    state = train_lib.init_state(cfg, opt, torch.Generator().manual_seed(0))
+    batch = TokenPipeline(cfg.vocab, 32, 4).batch_at(0, device="cpu")
+    ops.reset_launches()
+    out = {}
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            params = opt_lib.tree_map(
+                lambda p: p.to(dev, copy=True).requires_grad_(True), state.params)
+            loss, grads = train_lib.value_and_grad(
+                params, {k: v.to(dev) for k, v in batch.items()}, cfg)
+            out[dev] = (float(loss), [g.cpu() for g in grads])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert not any(ops.launch_counts().values())
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for a, c in zip(g_card, g_cpu):
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
+
+    card_state = train_lib.TrainState(
+        opt_lib.tree_map(lambda p: p.cuda(), state.params),
+        opt_lib.tree_map(lambda p: p.cuda(), state.opt_state), state.step)
+    new, _ = train_lib.make_train_step(cfg, opt)(card_state, {k: v.cuda() for k, v
+                                                              in batch.items()})
+    store.save(str(tmp_path), 1, new)
+    back, _ = loop_lib.elastic_restore(str(tmp_path), cfg, opt, device="cpu")
+    for a, b in zip(opt_lib.tree_leaves(new.params) + opt_lib.tree_leaves(new.opt_state),
+                    opt_lib.tree_leaves(back.params) + opt_lib.tree_leaves(back.opt_state)):
+        assert b.device.type == "cpu" and torch.equal(a.cpu(), b)
+    assert int(back.step) == 1

@@ -343,6 +343,7 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
+    assert ROOT / "tools" / "train_lm.py" in files
     assert ROOT / "src" / "repro_torch" / "runtime" / "loop.py" in files
     assert ROOT / "src" / "repro_torch" / "models" / "lm.py" in files
     assert ROOT / "src" / "repro_torch" / "nn" / "approx" / "pwl.py" in files
@@ -353,7 +354,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "transport/socket.py", "transport/job.py",
                 "transport/engine_link.py", "launch/party_host.py",
                 "analysis/lint.py", "analysis/locks.py", "analysis/census.py",
-                "analysis/hbcheck.py", "analysis/__init__.py"):
+                "analysis/hbcheck.py", "analysis/__init__.py", "launch/train.py",
+                "train/loop.py", "runtime/roofline.py", "runtime/op_analyzer.py"):
         assert ROOT / "src" / "repro_torch" / sub in files, sub
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -266,7 +266,22 @@ Phases (any failure raises, and the script exits non-zero):
    ``-smoke`` model at 2 layers trained 8 steps straight, and again with a
    checkpoint at 4 and a failure injected at 6 then resumed (from 4):
    params bitwise equal; the card's checkpoint restored onto the CPU
-   bitwise equal too.
+   bitwise equal too;
+19. dryrun: the dry run (``launch.dryrun``: the partition rules as DTensor
+   placements, the in-model constraints, a fake process group, fake
+   tensors on the card's device type; nothing allocated, nothing moved),
+   four ``python -m repro_torch.launch.dryrun`` processes at once
+   (``dryrun_phase``): (a) the train phase's own setup (Qwen1.5-0.5B, 4 x
+   512 tokens, remat "dots", AdamW) on a one-card mesh, passed as a
+   ShapeConfig of its own: its FLOPs within ``DRYRUN_FLOPS_RTOL`` of the
+   train phase's ``op_analyzer`` count and its ``peak_bytes`` within
+   ``DRYRUN_PEAK_RTOL`` of the train phase's measured peak, both printed;
+   (b) Qwen1.5-0.5B train_4k on the (16, 16) fake mesh of 256 ranks at
+   depth ``DRYRUN_MESH_DEPTH``: status ok, per-card FLOPs and
+   collectives; (c) the private LM's MPC cell (Qwen1.5-0.5B, 8/64) and (d)
+   ResNet-18's MPC cell on the (party 2, data 256) mesh at 8/64: rounds
+   and bytes equal to ``plan.schedule()``; zero launches of the port's
+   kernels in every process.
 
 Each phase's seconds are printed (``phase <name>: ...``) and recorded.
 Output: a ``{"kernels": [...]}`` line, then as the last line
@@ -4305,6 +4320,148 @@ def train_phase(smi: str):
     return record
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry run (no kernel of the port's own; nothing allocated)
+# ---------------------------------------------------------------------------
+
+DRYRUN_FLOPS_RTOL = 1e-3        # (a): against the train phase's op_analyzer count
+DRYRUN_PEAK_RTOL = 0.15         # (a): against the train phase's measured peak
+# (b): layers of Qwen1.5-0.5B traced on the (16, 16) mesh; at full depth the
+# trace takes about 120 s of one CPU core (the phase's limit is 45 s)
+DRYRUN_MESH_DEPTH = 2
+DRYRUN_WAIT_S = 300.0
+
+
+def _dryrun_args():
+    """(part -> dry-run command-line arguments) of the phase's four parts."""
+    b, s = TRAIN_SHAPE
+    return {
+        "a": ["--arch", TRAIN_ARCH, "--kind", "train", "--global-batch", str(b),
+              "--seq-len", str(s), "--mesh", "1x1"],
+        "b": ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--singlepod-only",
+              "--override", json.dumps({"n_layers": DRYRUN_MESH_DEPTH})],
+        "c": ["--mpc", "--mpc-arch", TRAIN_ARCH, "--mpc-budget", "8of64"],
+        "d": ["--mpc", "--mpc-arch", "resnet18", "--mpc-budget", "8of64"],
+    }
+
+
+def _dryrun_schedules():
+    """``plan.schedule()`` of (c) and (d), traced here on the meta device."""
+    import torch as _torch
+
+    from repro_torch.configs import RESNET18
+    from repro_torch.core.hummingbird import HBConfig, HBLayer
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import lm, resnet
+    from repro_torch.train.optimizer import tree_map
+
+    meta = lambda tree: tree_map(
+        lambda leaf: _torch.empty(leaf.shape, dtype=_torch.float32, device="meta"), tree)
+    cfg = zoo_cfg(TRAIN_ARCH)
+    params = meta(specs.param_shapes(cfg, "serve"))
+    plan = lm.trace(params, cfg, 1, 32)
+    hb = HBConfig(tuple(HBLayer(k=21, m=13) for _ in range(plan.hb.n_groups)),
+                  plan.hb.group_elements)
+    lm_sched = lm.trace(params, cfg, 1, 32, hb=hb).schedule()
+    rparams = meta(specs.shapes_of(lambda: resnet.init(RESNET18, device="cpu")))
+    per_rank = dryrun.MPC_BATCH // dryrun.MPC_MESH["data"]
+    r_sched = resnet.trace(rparams, RESNET18, per_rank,
+                           hb=dryrun.hb_config_for(RESNET18, "8of64")).schedule()
+    return {"c": (lm_sched.n_rounds, lm_sched.bytes_tx),
+            "d": (r_sched.n_rounds, r_sched.bytes_tx)}
+
+
+def dryrun_phase(smi: str, train: dict):
+    """The dry run (phase 19 of the docstring): four processes at once,
+    each writing its cell's JSON; checked against the train phase's
+    record ``train`` and against ``plan.schedule()``."""
+    import glob
+    import shutil
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out_root = os.path.join(ROOT, "chiprun_out", "dryrun")
+    shutil.rmtree(out_root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {}
+    for part, args in _dryrun_args().items():
+        out = os.path.join(out_root, part)
+        procs[part] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    logs, walls = {}, {}
+    try:
+        for part, proc in procs.items():
+            left = max(1.0, DRYRUN_WAIT_S - (time.perf_counter() - t0))
+            logs[part] = proc.communicate(timeout=left)[0]
+            walls[part] = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"dryrun ({part}) exited {proc.returncode}:\n"
+                                     f"{logs[part][-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    cells = {}
+    for part in procs:
+        files = sorted(glob.glob(os.path.join(out_root, part, "*.json")))
+        if len(files) != 1:
+            raise AssertionError(f"dryrun ({part}): {files}")
+        with open(files[0]) as f:
+            cells[part] = json.load(f)
+    bad = {p: c.get("error") for p, c in cells.items() if c.get("status") != "ok"}
+    if bad:
+        raise AssertionError(f"dryrun: cells not ok {bad}")
+    launched = {p: {k: v for k, v in c["kernel_launches"].items() if v}
+                for p, c in cells.items()}
+    a, b = cells["a"], cells["b"]
+    want_flops = train["a"]["op_analyzer"]["flops"]
+    want_peak = train["a"]["peak_bytes"]
+    flops_err = abs(a["hlo"]["flops"] - want_flops) / want_flops
+    peak_err = abs(a["memory"]["peak_bytes"] - want_peak) / want_peak
+    scheds = _dryrun_schedules()
+    got = {"c": (cells["c"]["lm"]["rounds"], cells["c"]["lm"]["bytes_tx"]),
+           "d": (cells["d"]["mpc"]["rounds"], cells["d"]["mpc"]["bytes_tx"])}
+    record = {"card": smi, "cells": cells, "part_wall_s": walls, "wall_s": wall,
+              "a_flops_rel_err": flops_err, "a_peak_rel_err": peak_err,
+              "train_flops": want_flops, "train_peak_bytes": want_peak,
+              "schedules": scheds, "launches": launched,
+              "tol": {"flops_rtol": DRYRUN_FLOPS_RTOL, "peak_rtol": DRYRUN_PEAK_RTOL}}
+    print(f"dryrun (a) {TRAIN_ARCH} {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} tokens, remat "
+          f"'dots', AdamW, a one-card mesh, {a['device']} fake tensors [{smi}]: FLOPs "
+          f"{a['hlo']['flops']:.6g} against the train phase's {want_flops:.6g} (rel "
+          f"{flops_err:.3g}, limit {DRYRUN_FLOPS_RTOL}); peak_bytes "
+          f"{a['memory']['peak_bytes']} against the {want_peak} B measured (rel "
+          f"{peak_err:.3g}, limit {DRYRUN_PEAK_RTOL}); {a['hlo']['aten_ops']} aten ops, "
+          f"traced in {a['trace_s']} s", flush=True)
+    print(f"dryrun (b) {TRAIN_ARCH} train_4k at depth {DRYRUN_MESH_DEPTH} on the "
+          f"{b['mesh']} fake mesh of {b['n_chips']} ranks: {b['status']}; per card "
+          f"{b['hlo']['flops']:.6g} FLOP, {b['hlo']['bytes']:.6g} B, collectives "
+          f"{b['hlo']['collective_bytes']:.6g} B {b['hlo']['collectives']}, peak "
+          f"{b['memory']['peak_bytes']} B; dominant {b['roofline']['dominant']} "
+          f"(H100 datasheet peaks); traced in {b['trace_s']} s", flush=True)
+    print(f"dryrun (c) {cells['c']['arch']} {cells['c']['shape']}: rounds / bytes "
+          f"{got['c']} against plan.schedule() {scheds['c']}; (d) {cells['d']['arch']} "
+          f"({cells['d']['mpc']['batch_per_rank']} images a rank): {got['d']} against "
+          f"{scheds['d']}, pool {cells['d']['mpc']['pool_bytes_per_rank']} B a rank; "
+          f"processes {({p: round(w, 1) for p, w in walls.items()})} s, the phase's "
+          f"four at once {wall:.1f} s; launches {launched}", flush=True)
+    if flops_err > DRYRUN_FLOPS_RTOL or peak_err > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dryrun (a): FLOPs rel {flops_err}, peak rel {peak_err}")
+    if got != scheds:
+        raise AssertionError(f"dryrun (c)/(d): {got} against {scheds}")
+    counts = ops.launch_counts()
+    if any(counts.values()) or any(launched.values()):
+        raise AssertionError(f"dryrun: kernels launched {counts} {launched}")
+    record["parent_launches"] = counts
+    return record
+
+
 PHASE_S: dict = {}
 
 
@@ -4363,6 +4520,7 @@ def main() -> None:
     zoo = _phase("zoo", zoo_phase, smi)
     torch.cuda.empty_cache()
     train = _phase("train", train_phase, smi)
+    dry = _phase("dryrun", dryrun_phase, smi, train)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
                          ("frontend", front_launches), ("seed-oracle", seed_launches),
                          ("deploy", deploy_launches), ("mesh", mesh_launches)):
@@ -4393,7 +4551,7 @@ def main() -> None:
                    "serve": served, "serve_lm": served_lm, "frontend": front,
                    "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
                    "analysis": analysis, "zoo": zoo, "train": train,
-                   "phase_s": PHASE_S}, f, indent=1)
+                   "dryrun": dry, "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))

@@ -88,6 +88,9 @@ def _counters(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor, torch.Tenso
 def _hash_counters(key: torch.Tensor, shape: Tuple[int, ...]):
     if key.shape != (2,):
         raise ValueError(f"expected one key of shape (2,), got {tuple(key.shape)}")
+    if key.device.type == "meta":       # shapes only: there is no value to hash
+        words = torch.empty(shape, dtype=torch.int64, device="meta")
+        return words, words
     c1, c2 = _counters(shape, key.device)
     return threefry2x32(key[0], key[1], c1, c2)
 

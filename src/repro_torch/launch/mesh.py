@@ -256,6 +256,57 @@ def make_smoke_mesh(device: Device = None) -> Mesh:
     return Mesh((1, 1), ("data", "model"), device=device)
 
 
+# ---------------------------------------------------------------------------
+# Production meshes: DeviceMeshes for the DTensor dry run
+# ---------------------------------------------------------------------------
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False, *, device: Device = None):
+    """The 16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks)
+    ``DeviceMesh`` over the current process group, which must hold that
+    many ranks (``fake_process_group`` gives one process all of them).
+    ``device`` (default ``cuda``) is the device type of its tensors."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    return make_device_mesh(shape, names, device=device)
+
+
+def make_device_mesh(shape: Sequence[int], names: Sequence[str], *,
+                     device: Device = None):
+    """A ``DeviceMesh`` of ``shape`` with dims ``names`` over the current
+    process group, ranks laid out row-major as ``jax.make_mesh`` lays out
+    devices."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dev = resolve_device(device)
+    n = 1
+    for k in shape:
+        n *= int(k)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        have = dist.get_world_size() if dist.is_initialized() else None
+        raise ValueError(f"a {tuple(shape)} mesh needs a process group of {n} "
+                         f"ranks, the current one has {have}")
+    return DeviceMesh(dev.type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
+
+
+def fake_process_group(world_size: int, rank: int = 0) -> None:
+    """Start torch's ``fake`` process group of ``world_size`` ranks in this
+    process, as ``rank``: every collective returns at once and moves
+    nothing, so one process can trace a step of a 512-rank mesh.  Any
+    process group already started is destroyed first."""
+    # the fake backend's store lives in a private testing module: this is
+    # the one place the port imports it
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+
+
 def _rank_main(script: str, fn: str, rank: int, world: int, init_method: str,
                args: tuple, results) -> None:
     """One spawned rank: load ``script``, run ``fn``, report, leave the

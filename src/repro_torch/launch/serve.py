@@ -1,21 +1,27 @@
 """Serving steps (twin of the reference's ``launch/serve.py``): the
 plaintext LM's prefill, decode and greedy loop over every family of the
-model zoo, the private ResNet step and the ResNet serving engine.
+model zoo, the private ResNet step, the ResNet serving engine and the
+MPC dry run's input specs.
 
 The decode steps update the serving cache in place (``lm.decode_step``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import api
 from ..configs.base import ArchConfig
 from ..configs.resnet import ResNetConfig
+from ..core import beaver
 from ..core.hummingbird import HBConfig
 from ..device import Device
 from ..models import encdec, lm, resnet
+from ..train.optimizer import tree_map
+from . import specs
 
 
 def make_decode_step(cfg: ArchConfig):
@@ -123,3 +129,78 @@ def make_inference_engine(params, rcfg: ResNetConfig,
         plan = plan.with_hb(HBConfig(hb.layers, plan.group_elements))
     return InferenceEngine(afn, params, rcfg, plan, session, policy=policy,
                            **engine_kw)
+
+
+# ---------------------------------------------------------------------------
+# The MPC dry run's inputs: shapes, specs and per-rank blocks, no allocation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """One input of the mesh-native MPC step: its global shape and dtype,
+    its spec (a mesh axis name or None per dim, as a ``PartitionSpec``)
+    and the block one rank holds, as ``Mesh.local_block`` cuts it."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Tuple[Optional[str], ...]
+    block: Tuple[int, ...]
+
+    @property
+    def block_bytes(self) -> int:
+        return math.prod(self.block) * self.dtype.itemsize
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """A port ``Mesh``'s axis sizes (its ``shape``), or a mapping of them."""
+    return dict(mesh.shape) if hasattr(mesh, "axis_names") else dict(mesh)
+
+
+def _input_spec(shape, dtype: torch.dtype, spec, sizes: Dict[str, int]) -> InputSpec:
+    shape = tuple(int(d) for d in shape)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    block = []
+    for d, axis in zip(shape, spec):
+        n = sizes[axis] if axis is not None else 1
+        if d % n:
+            raise ValueError(f"dim {d} of {shape} does not split into {n} blocks "
+                             f"along {axis!r}")
+        block.append(d // n)
+    return InputSpec(shape, dtype, spec, tuple(block))
+
+
+def _triple_pool_shardings(pool, mesh, party_axis: str):
+    """Each pool leaf's ``InputSpec``: its party dim from
+    ``beaver.pool_party_specs`` (leading for ``bin_init``, the arithmetic
+    members and the cone's levels, second for the dense ``bin_levels``),
+    the structural derivation the mesh ``serve_step`` reads too; nothing is
+    guessed from a leaf's shape."""
+    sizes = _axis_sizes(mesh)
+    specs = beaver.pool_party_specs(pool, party_axis)
+    return [None if b is None else beaver.map_bundle(
+        lambda t, sp: _input_spec(t.shape, t.dtype, sp, sizes), b, s)
+        for b, s in zip(pool, specs)]
+
+
+def mpc_input_specs(rcfg: ResNetConfig, batch: int, mesh,
+                    hb: Optional[HBConfig], cone: bool = False):
+    """(params, x, triples, key) of the mesh-native MPC step at ``batch``,
+    as ``InputSpec`` trees, computed on fake tensors (nothing allocated):
+    the int64 input shares (2, B, 3, H, W) split over (party, data), the
+    params and the key replicated, the plan's triple pool split over the
+    party axis.  ``mesh``: a port ``Mesh`` or a mapping of axis sizes with
+    a "party" (or "pod") axis and "data"."""
+    sizes = _axis_sizes(mesh)
+    party_axis = "party" if "party" in sizes else "pod"
+    hw = rcfg.in_hw
+    x = _input_spec((2, batch, 3, hw, hw), torch.int64, (party_axis, "data"), sizes)
+    shapes = specs.shapes_of(lambda: resnet.init(rcfg, device="cpu"))
+    params = tree_map(lambda leaf: _input_spec(leaf.shape, leaf.dtype, (), sizes), shapes)
+    plan = resnet.trace(tree_map(lambda leaf: torch.empty(
+        leaf.shape, dtype=leaf.dtype, device="meta"), shapes),
+        rcfg, batch, hb=resnet.hb_or_exact(hb, rcfg), cone=cone)
+    pool = beaver.gen_plan_triples(torch.zeros(2, dtype=torch.int64, device="meta"),
+                                   plan.triple_specs(), cone=cone)
+    triples = _triple_pool_shardings(pool, mesh, party_axis)
+    key = _input_spec((2,), torch.int64, (), sizes)
+    return params, x, triples, key

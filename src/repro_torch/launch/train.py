@@ -8,9 +8,13 @@ bfloat16 and the gradients land in float32 on the master leaves.  The
 remat policy comes from the arch config (``models.lm._maybe_remat``:
 ``torch.utils.checkpoint`` per layer).  Microbatches run as a Python loop
 that accumulates gradients (the reference's ``lax.scan``).  The step
-counter is a 0-d int32 tensor on the host: the schedule reads it there,
-so no step waits on the card for it.  The mesh's sharding constraints
-of the reference are the identity on one device and are dropped.
+counter is a 0-d int32 tensor on the host, and the schedule computes on
+it there as tensor ops: nothing is read back, so no step waits on the
+card and the step traces under ``FakeTensorMode``.  On DTensors (the dry
+run) the model's sharding constraints apply, and logits split over the
+vocab take a vocab-parallel log-likelihood
+(``runtime/constraints.vocab_parallel_nll``); on plain tensors neither
+changes anything.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from ..configs.base import ArchConfig
 from ..device import Device
 from ..models import encdec, lm
 from ..nn import common, moe as moe_lib
+from ..runtime import constraints
 from ..train.optimizer import tree_leaves, tree_map
 
 
@@ -58,11 +63,21 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig) -> torch.Te
         logits = lm.apply(p, batch["tokens"], cfg,
                           frontend_embeds=batch.get("frontend"))
     labels = batch["labels"]
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    safe = torch.clamp_min(labels, 0).to(torch.int64)
-    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if constraints.vocab_split(logits):
+        # DTensor logits split over the vocab: the same log-likelihood,
+        # vocab-parallel, where log_softmax and the gather below would
+        # reassemble the whole vocab on every rank, and its gradient too
+        ll = -constraints.vocab_parallel_nll(logits, labels)
+        loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        safe = torch.clamp_min(labels, 0).to(torch.int64)
+        # on DTensors a vocab-split gather is a masked partial sum: reduce
+        # it over the vocab ranks before anything reshards it
+        ll = constraints.shard(torch.gather(logp, -1, safe[..., None]),
+                               "dp", None, None)[..., 0]
+        loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     if cfg.family == "moe":
         loss = loss + 0.01 * _moe_aux(p, batch, cfg)
     return loss

@@ -19,6 +19,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import Device, resolve as resolve_device
 from ..nn import attention, common
+from ..runtime import constraints, sharding
 from .lm import (_dtype, _layer, _layers, _norm, _norm_init, _stack,
                  padded_vocab, params_from_jax)
 
@@ -75,7 +76,7 @@ def _self_attn_full(cfg: ArchConfig, p, x, causal: bool):
     b, s, _ = x.shape
     q, k, v = attention._project_qkv(
         p, x, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-        torch.arange(s, device=x.device)[None, :], cfg.rope_theta)
+        constraints.like(torch.arange(s, device=x.device)[None, :], x), cfg.rope_theta)
     if causal:
         o = attention.flash_attention(q, k, v, q_offset=0, chunk_q=cfg.attn_chunk_q,
                                       chunk_k=cfg.attn_chunk_k)
@@ -88,7 +89,8 @@ def _softmax_attend(q, k, v, n_kv: int):
     """Unmasked attention in float32.  q: (B, Sq, H, Dh); k, v: (B, Sk, K,
     Dh) -> (B, Sq, H, Dh) float32."""
     b, s, h, dh = q.shape
-    qh = q.reshape(b, s, n_kv, h // n_kv, dh).to(torch.float32)
+    qh = constraints.splittable(q, 2, n_kv).reshape(b, s, n_kv, h // n_kv, dh).to(
+        torch.float32)
     sc = torch.einsum("bqkgd,bskd->bkgqs", qh, k.to(torch.float32)) * dh ** -0.5
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
@@ -102,15 +104,17 @@ def _bidir_attention(q, k, v):
 def _cross_attn(cfg: ArchConfig, p, x, mem_k, mem_v):
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    q = common.dense(p["wq"], x).reshape(b, s, cfg.n_heads, dh)
+    q = constraints.splittable(common.dense(p["wq"], x), -1, cfg.n_heads).reshape(
+        b, s, cfg.n_heads, dh)
     o = _softmax_attend(q, mem_k, mem_v, cfg.n_kv_heads)
     return common.dense(p["wo"], o.reshape(b, s, cfg.n_heads * dh).to(x.dtype))
 
 
 def encode(params, src_embeds, cfg: ArchConfig):
     """src_embeds: (B, S_src, D) stub frame embeddings -> encoder memory."""
-    h = src_embeds + _sin_posenc(src_embeds.shape[1], cfg.d_model,
-                                 src_embeds.dtype, src_embeds.device)
+    h = src_embeds + constraints.like(_sin_posenc(
+        src_embeds.shape[1], cfg.d_model, src_embeds.dtype, src_embeds.device),
+        src_embeds)
     for p in _layers(params["enc_layers"], cfg.n_enc_layers):
         h = h + _self_attn_full(cfg, p["attn"], _norm(cfg, p["ln1"], h), causal=False)
         h = h + common.mlp(p["mlp"], _norm(cfg, p["ln2"], h), cfg.act)
@@ -141,7 +145,7 @@ def apply(params, src_embeds, tgt_tokens, cfg: ArchConfig):
     memory = encode(params, src_embeds, cfg)
     mem_k, mem_v = _memory_kv(params, memory, cfg)
     h = common.embed(params["embed"], tgt_tokens)
-    h = h + _sin_posenc(h.shape[1], cfg.d_model, h.dtype, h.device)
+    h = h + constraints.like(_sin_posenc(h.shape[1], cfg.d_model, h.dtype, h.device), h)
     for l, p in enumerate(_layers(params["dec_layers"], cfg.n_layers)):
         h = _dec_block(cfg, p, h,
                        lambda x, p=p: _self_attn_full(cfg, p["attn"], x, causal=True),
@@ -160,12 +164,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, src_len: int,
             "mem_k": zeros(mem), "mem_v": zeros(mem)}
 
 
+def _init_cache_like(cfg: ArchConfig, batch: int, max_len: int, src):
+    """``init_cache`` on ``src``'s device; for a DTensor ``src``, DTensors on
+    its mesh placed by the cache rules."""
+    mesh = constraints.mesh_of(src)
+    if mesh is None:
+        return init_cache(cfg, batch, max_len, src.shape[1], src.device)
+    return sharding.cache_zeros(init_cache(cfg, batch, max_len, src.shape[1], "meta"),
+                                cfg, mesh, src.device)
+
+
 def prefill(params, src_embeds, cfg: ArchConfig, batch: int, max_len: int):
     """Encode the source and build the decoder's cache (cross K/V, empty
     self K/V)."""
     memory = encode(params, src_embeds, cfg)
     mem_k, mem_v = _memory_kv(params, memory, cfg)
-    cache = init_cache(cfg, batch, max_len, src_embeds.shape[1], src_embeds.device)
+    cache = _init_cache_like(cfg, batch, max_len, src_embeds)
     cache["mem_k"] = mem_k.to(torch.bfloat16)
     cache["mem_v"] = mem_v.to(torch.bfloat16)
     return cache
@@ -176,7 +190,7 @@ def decode_step(params, token, cache, pos: int, cfg: ArchConfig):
     cache), the self K/V updated in place."""
     max_len = cache["self_kv"]["k"].shape[2]
     h = common.embed(params["embed"], token)
-    pe = _sin_posenc(max_len, cfg.d_model, h.dtype, h.device)
+    pe = constraints.like(_sin_posenc(max_len, cfg.d_model, h.dtype, h.device), h)
     h = h + pe[attention.cache_slot(pos, max_len)][None]
     for l in range(cfg.n_layers):
         p = _layer(params["dec_layers"], l)

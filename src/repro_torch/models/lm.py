@@ -46,6 +46,7 @@ from ..configs.base import ArchConfig
 from ..core import mpc_tensor
 from ..device import Device, resolve as resolve_device
 from ..nn import approx, attention, common, moe as moe_lib, rope_tables, ssm
+from ..runtime import constraints
 
 BIG_WINDOW = 1 << 30
 
@@ -315,7 +316,8 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, frontend_embeds):
             raise ValueError(f"{cfg.name}: a {cfg.frontend} arch needs its stub "
                              "frontend embeds")
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
-    return h
+    # residual stream: batch over dp, replicated over model (Megatron TP)
+    return constraints.shard(h, "dp", None, None)
 
 
 def apply(params, tokens, cfg: ArchConfig, frontend_embeds=None):
@@ -329,7 +331,7 @@ def apply(params, tokens, cfg: ArchConfig, frontend_embeds=None):
                 block = functools.partial(_attn_mlp_block, cfg, idx=l)
             else:
                 block = functools.partial(_mamba_block, cfg)
-            h = _maybe_remat(cfg, block)(p, h)
+            h = constraints.shard(_maybe_remat(cfg, block)(p, h), "dp", None, None)
     return _logits(params, cfg, h)
 
 
@@ -376,6 +378,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device: Device = None)
     raise ValueError(cfg.family)
 
 
+def _init_cache_like(cfg: ArchConfig, batch: int, max_len: int, h):
+    """``init_cache`` on ``h``'s device; for a DTensor ``h``, DTensors on
+    its mesh placed by the cache rules (``runtime/sharding.cache_spec``),
+    each rank's block made alone."""
+    mesh = constraints.mesh_of(h)
+    if mesh is None:
+        return init_cache(cfg, batch, max_len, h.device)
+    from ..runtime import sharding
+
+    return sharding.cache_zeros(init_cache(cfg, batch, max_len, "meta"), cfg, mesh,
+                                h.device)
+
+
 def decode_step(params, token, cache, pos: int, cfg: ArchConfig):
     """token: (B, 1) ids; ``pos``: the token's position (an int).  Returns
     (logits (B, 1, vocab), cache), the cache updated in place."""
@@ -409,14 +424,15 @@ def decode_step(params, token, cache, pos: int, cfg: ArchConfig):
 def _attend_prefill(cfg: ArchConfig, p_attn, x, window=None):
     """Prefill attention: (output, k, v) of the whole sequence."""
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = constraints.like(torch.arange(s, device=x.device)[None, :], x)
     q, k, v = attention._project_qkv(p_attn, x, cfg.n_heads, cfg.n_kv_heads,
                                      cfg.resolved_head_dim, positions,
                                      cfg.rope_theta)
     o = attention.flash_attention(q, k, v, q_offset=0, chunk_q=cfg.attn_chunk_q,
                                   chunk_k=cfg.attn_chunk_k, window=window,
                                   cap=cfg.attn_softcap)
-    a = common.dense(p_attn["wo"], o.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim))
+    a = common.dense(p_attn["wo"], constraints.grad_placed(
+        o.reshape(b, s, cfg.n_heads * cfg.resolved_head_dim)))
     return a, k, v
 
 
@@ -434,7 +450,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, frontend_embeds=None)
     b, s = h.shape[0], h.shape[1]
     if s > max_len:
         raise ValueError(f"prefill of {s} positions into a cache of {max_len}")
-    cache = init_cache(cfg, b, max_len, h.device)
+    cache = _init_cache_like(cfg, b, max_len, h)
     layers = params["layers"]
     if cfg.family in ("dense", "moe", "vlm"):
         for l in range(cfg.n_layers):

@@ -5,9 +5,11 @@ Training and prefill use the reference's flash-style chunked attention:
 an unrolled loop over query chunks, an inner loop over key/value chunks
 ``0..i`` only (block-level causal skipping) and an online softmax in
 float32.  Decode attends one new token against the whole cache, masked to
-``cache[: pos + 1]`` (and the sliding window).  The mesh sharding
-constraints of the reference are the identity without a mesh and are
-dropped here.
+``cache[: pos + 1]`` (and the sliding window).  On DTensors the
+reference's sharding constraints pin the chunks (``runtime/constraints``:
+sequence-parallel attention over `model`, a context-parallel decode
+cache), and the positions, masks and accumulator inits become replicated
+DTensors; on plain tensors both are the identity.
 
 The cache is written in place: ``attention_decode`` stores the new K/V at
 ``pos`` in the tensors of ``cache`` and returns the same dict (the
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import Device, resolve as resolve_device
+from ..runtime import constraints
 from . import common
 
 NEG_INF = -2.0e38
@@ -47,9 +50,11 @@ def _project_qkv(params, x, n_heads: int, n_kv: int, head_dim: int,
     """x: (B, S, d) -> q (B, S, H, Dh), k and v (B, S, n_kv, Dh), RoPE on
     q and k when ``rope_theta``."""
     b, s, _ = x.shape
-    q = common.dense(params["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = common.dense(params["wk"], x).reshape(b, s, n_kv, head_dim)
-    v = common.dense(params["wv"], x).reshape(b, s, n_kv, head_dim)
+    proj = lambda w, n: constraints.splittable(common.dense(w, x), -1, n).reshape(
+        b, s, n, head_dim)
+    q = proj(params["wq"], n_heads)
+    k = proj(params["wk"], n_kv)
+    v = proj(params["wv"], n_kv)
     if rope_theta:
         q = common.rope(q, positions, rope_theta)
         k = common.rope(k, positions, rope_theta)
@@ -82,24 +87,33 @@ def flash_attention(q, k, v, *, q_offset: int, chunk_q: int, chunk_k: int,
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     s = s_real + pad
     nq, nk = s // cq, s // ck
-    qc = q.reshape(b, nq, cq, n_kv, g, dh)
-    kc = k.reshape(b, nk, ck, n_kv, dh)
-    vc = v.reshape(b, nk, ck, n_kv, dh)
+    qc = constraints.splittable(constraints.splittable(q, 1, nq), 2, n_kv).reshape(
+        b, nq, cq, n_kv, g, dh)
+    kc = constraints.splittable(k, 1, nk).reshape(b, nk, ck, n_kv, dh)
+    vc = constraints.splittable(v, 1, nk).reshape(b, nk, ck, n_kv, dh)
+    # sequence-parallel attention over `model`: each shard computes all
+    # heads for a slice of the query chunk; k/v chunks are replicated over
+    # model (the reference's constraints; the softmax stays local)
+    kc = constraints.shard(kc, "dp", None, None, None, None)
+    vc = constraints.shard(vc, "dp", None, None, None, None)
     dev = q.device
     out = []
     for iq in range(nq):            # block-level causal skipping
-        q_i = qc[:, iq].to(torch.float32)
+        q_i = constraints.shard(qc[:, iq].to(torch.float32), "dp", "tp", None, None, None)
         q_pos = q_offset + iq * cq + torch.arange(cq, device=dev)
-        m = torch.full((b, n_kv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, n_kv, g, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, n_kv, g, cq, dh), dtype=torch.float32, device=dev)
+        init = lambda shape, fill: constraints.like(
+            torch.full(shape, fill, dtype=torch.float32, device=dev), q_i)
+        m = constraints.shard(init((b, n_kv, g, cq), NEG_INF), "dp", None, None, "tp")
+        l = constraints.shard(init((b, n_kv, g, cq), 0.0), "dp", None, None, "tp")
+        acc = constraints.shard(init((b, n_kv, g, cq, dh), 0.0),
+                                "dp", None, None, "tp", None)
         for jk in range(iq * cq // ck + 1):     # kv chunks visible to chunk iq
             k_pos = jk * ck + torch.arange(ck, device=dev)
             sc = _chunk_scores(q_i, kc[:, jk].to(torch.float32), scale, cap)
             mask = q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 mask &= q_pos[:, None] - k_pos[None, :] < window
-            sc = torch.where(mask, sc, NEG_INF)
+            sc = torch.where(constraints.like(mask, sc), sc, NEG_INF)
             m_new = torch.maximum(m, sc.amax(dim=-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -108,7 +122,7 @@ def flash_attention(q, k, v, *, q_offset: int, chunk_q: int, chunk_k: int,
                 "bkgqc,bckd->bkgqd", p, vc[:, jk].to(torch.float32))
             m = m_new
         o = acc / torch.clamp_min(l[..., None], 1e-30)
-        out.append(o.permute(0, 3, 1, 2, 4).reshape(b, cq, h, dh))
+        out.append(constraints.grad_placed(o.permute(0, 3, 1, 2, 4).reshape(b, cq, h, dh)))
     return torch.cat(out, dim=1).to(q.dtype)[:, :s_real]
 
 
@@ -119,12 +133,13 @@ def attention(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     """Full-sequence causal attention (training / prefill)."""
     b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = constraints.like(torch.arange(s, device=x.device)[None, :], x)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions,
                            rope_theta)
     o = flash_attention(q, k, v, q_offset=0, chunk_q=chunk_q, chunk_k=chunk_k,
                         window=window, cap=cap)
-    return common.dense(params["wo"], o.reshape(b, s, n_heads * head_dim))
+    return common.dense(params["wo"],
+                        constraints.grad_placed(o.reshape(b, s, n_heads * head_dim)))
 
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
@@ -144,6 +159,34 @@ def cache_slot(pos: int, max_len: int) -> int:
     return pos
 
 
+def _cache_constraint(t):
+    """Context-parallel decode: batch over dp, the *sequence* over tp; with
+    a batch too small for dp (long_500k, B = 1) the sequence over both."""
+    if constraints.axis_divides("dp", t.shape[0]):
+        return constraints.shard(t, "dp", "tp", None, None)
+    return constraints.shard(t, None, ("dp", "tp"), None, None)
+
+
+def _write_slot(cache_t, pos: int, new) -> None:
+    """``cache_t[:, pos] = new``, in place.  On a DTensor cache (its
+    sequence dim split over ranks) the rank whose block holds ``pos``
+    writes it into its local block."""
+    mesh = constraints.mesh_of(cache_t)
+    if mesh is None:
+        cache_t[:, pos] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    off, block = constraints.block_of(cache_t, 1)      # this rank's slots
+    if not off <= pos < off + block:
+        return
+    # the slot's placements: the cache's, with the sequence dim dropped
+    want = [Replicate() if p == Shard(1) else
+            Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+            for p in cache_t.placements]
+    cache_t.to_local()[:, pos - off] = new.redistribute(mesh, want).to_local()
+
+
 def attention_decode(params, x, cache, pos: int, *, n_heads: int, n_kv: int,
                      head_dim: int, rope_theta: float = 10000.0,
                      window: Optional[int] = None, cap: float = 0.0):
@@ -155,21 +198,23 @@ def attention_decode(params, x, cache, pos: int, *, n_heads: int, n_kv: int,
     b = x.shape[0]
     s_max = cache["k"].shape[1]
     pos = cache_slot(pos, s_max)
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = constraints.like(torch.full((b, 1), pos, device=x.device), x)
     q, k_new, v_new = _project_qkv(params, x, n_heads, n_kv, head_dim,
                                    positions, rope_theta)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], pos, k_new[:, 0].to(cache["k"].dtype))
+    _write_slot(cache["v"], pos, v_new[:, 0].to(cache["v"].dtype))
+    k_cache, v_cache = _cache_constraint(cache["k"]), _cache_constraint(cache["v"])
     g = n_heads // n_kv
-    qh = q.reshape(b, 1, n_kv, g, head_dim).to(torch.float32)
+    qh = constraints.splittable(q, 2, n_kv).reshape(b, 1, n_kv, g, head_dim).to(
+        torch.float32)
     sc = torch.einsum("bqkgd,bskd->bkgqs", qh,
-                      cache["k"].to(torch.float32)) * head_dim ** -0.5
+                      k_cache.to(torch.float32)) * head_dim ** -0.5
     sc = common.softcap(sc, cap)
     kpos = torch.arange(s_max, device=x.device)
     mask = kpos <= pos
     if window is not None:
         mask &= kpos > pos - window
-    p = torch.softmax(torch.where(mask, sc, NEG_INF), dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, cache["v"].to(torch.float32))
-    o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
+    p = torch.softmax(torch.where(constraints.like(mask, sc), sc, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.to(torch.float32))
+    o = constraints.grad_placed(o.reshape(b, 1, n_heads * head_dim)).to(x.dtype)
     return common.dense(params["wo"], o), cache

@@ -18,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..runtime import constraints
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, with_bias: bool = False):
@@ -38,7 +40,7 @@ def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    y = einsum("...d,df->...f", x, params["w"])
+    y = einsum("...d,df->...f", x, constraints.gathered(params["w"]))
     if "b" in params:
         y = y + params["b"]
     return y
@@ -75,7 +77,12 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32):
 
 
 def embed(params, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, params["table"])
+    """The rows of ``params["table"]`` at ``ids``.  On DTensors a lookup in
+    a vocab-split table is a masked partial sum; it is reduced here onto
+    the batch split (and its gradient brought back to that split, which
+    DTensor can turn into the masked form the lookup's backward takes)."""
+    return constraints.grad_placed(constraints.shard(
+        F.embedding(ids, constraints.gathered(params["table"])), "dp", None, None))
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -104,8 +111,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     (..., S).  Tables in float32, as the reference."""
     dh = x.shape[-1]
     half = dh // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device)
-                      / half)
+    freqs = constraints.like(
+        theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half),
+        positions)
     angles = positions[..., None].to(torch.float32) * freqs    # (..., S, half)
     cos = torch.cos(angles)[..., None, :].to(x.dtype)
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
@@ -125,12 +133,17 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
 
 def mlp(params, x: torch.Tensor, act_name: str = "gelu") -> torch.Tensor:
     act = activation(act_name)
-    up = einsum("...d,df->...f", x, params["w_up"])
-    if "w_gate" in params:
-        h = act(einsum("...d,df->...f", x, params["w_gate"])) * up
+    w = {k: constraints.gathered(v) for k, v in params.items()}
+    up = einsum("...d,df->...f", x, w["w_up"])
+    if "w_gate" in w:
+        h = act(einsum("...d,df->...f", x, w["w_gate"])) * up
     else:
         h = act(up)
-    return einsum("...f,fd->...d", h, params["w_down"])
+    # Megatron TP: hidden sharded over model, contraction in w_down emits
+    # the single per-block all-reduce
+    h = constraints.shard(h, "dp", None, "tp")
+    y = einsum("...f,fd->...d", h, w["w_down"])
+    return constraints.shard(y, "dp", None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,10 @@ relative per step), not bit for bit.
 State layouts:
   mamba1: h (B, d_inner, N),  conv cache (B, k-1, d_inner)
   mamba2: h (B, H, P, N),     conv cache (B, k-1, d_inner + 2N)
+
+On DTensors (the dry run) the reference's sharding constraints apply (the
+inner width over `model`) and the zero states are replicated DTensors;
+on plain tensors both are the identity.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import Device, resolve as resolve_device
+from ..runtime import constraints
 from . import common
 
 _CONV_K = 4
@@ -111,13 +116,17 @@ def mamba1(p, x, *, n_state: int, chunk: int = 128, return_state: bool = False):
     b, s, _ = x.shape
     di = p["conv_w"].shape[1]
     dt_rank = p["x_proj"]["w"].shape[1] - 2 * n_state
-    xr, z = common.dense(p["in_proj"], x).chunk(2, dim=-1)
+    xz = constraints.shard(common.dense(p["in_proj"], x), "dp", None, "tp")  # d_inner TP
+    xr, z = xz.chunk(2, dim=-1)
     xc = F.silu(_causal_conv(xr, p["conv_w"], p["conv_b"]))
-    h = torch.zeros((b, di, n_state), dtype=torch.float32, device=x.device)
+    h = constraints.shard(constraints.like(
+        torch.zeros((b, di, n_state), dtype=torch.float32, device=x.device), x),
+        "dp", "tp", None)
     ys = []
     for sl in _chunks(s, chunk):
         decay, inc, c_t = _mamba1_core(p, xc[:, sl].to(torch.float32), dt_rank,
                                        n_state)
+        inc = constraints.shard(inc, "dp", None, "tp", None)
         inc[:, 0] += decay[:, 0] * h
         hs = _scan(decay, inc)
         ys.append(torch.einsum("bldn,bln->bld", hs, c_t.to(torch.float32)))
@@ -147,7 +156,8 @@ def mamba1_decode(p, x, state, *, n_state: int):
     xc, conv = _conv_step(state["conv"], xr, p["conv_w"], p["conv_b"])
     xc = F.silu(xc)          # float32 (the conv cache's); cast back after the skip
     decay, inc, c_t = _mamba1_core(p, xc.to(torch.float32), dt_rank, n_state)
-    h = decay * state["h"] + inc
+    # the state's own split (the cache's): batch over dp, d_inner over tp
+    h = constraints.shard(decay * state["h"] + inc, "dp", "tp", None)
     y = torch.einsum("bdn,bn->bd", h, c_t.to(torch.float32))
     y = (y + xc * p["d_skip"].to(torch.float32)).to(x.dtype)
     y = y * F.silu(z)
@@ -190,18 +200,22 @@ def mamba2(p, x, *, n_state: int, head_dim: int = 64, chunk: int = 64,
     di = p["out_proj"]["w"].shape[0]
     n_heads = di // head_dim
     z, xbc_raw, dt_in = _mamba2_split(p, x, di, n_state)
+    z = constraints.shard(z, "dp", None, "tp")
     xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
     xr, b_t, c_t = torch.split(xbc, [di, n_state, n_state], dim=-1)
+    xr = constraints.shard(xr, "dp", None, "tp")
     dt = F.softplus(dt_in + p["dt_bias"]).to(torch.float32)           # (B, S, H)
     a = -torch.exp(p["a_log"].to(torch.float32))                      # (H,)
     decay = torch.exp(dt * a)                                         # (B, S, H)
     xh = xr.reshape(b, s, n_heads, head_dim).to(torch.float32)
     inc = (dt[..., None] * xh)[..., None] * b_t[:, :, None, None, :]  # (B, S, H, P, N)
-    h = torch.zeros((b, n_heads, head_dim, n_state), dtype=torch.float32,
-                    device=x.device)
+    h = constraints.shard(constraints.like(
+        torch.zeros((b, n_heads, head_dim, n_state), dtype=torch.float32,
+                    device=x.device), x), "dp", "tp", None, None)
     ys = []
     for sl in _chunks(s, chunk):
-        dec_k, inc_k = decay[:, sl], inc[:, sl].clone()
+        dec_k = decay[:, sl]
+        inc_k = constraints.shard(inc[:, sl].clone(), "dp", None, "tp", None, None)
         inc_k[:, 0] += dec_k[:, 0, :, None, None] * h
         hs = _scan(dec_k[..., None, None], inc_k)
         ys.append(torch.einsum("blhpn,bln->blhp", hs, c_t[:, sl].to(torch.float32)))
@@ -237,7 +251,8 @@ def mamba2_decode(p, x, state, *, n_state: int, head_dim: int = 64):
     decay = torch.exp(dt * a)                                         # (B, H)
     xh = xr.reshape(b, n_heads, head_dim).to(torch.float32)
     inc = (dt[..., None] * xh)[..., None] * b_t[:, None, None, :]
-    h = decay[..., None, None] * state["h"] + inc
+    # the state's own split (the cache's): batch over dp, heads over tp
+    h = constraints.shard(decay[..., None, None] * state["h"] + inc, "dp", "tp", None, None)
     y = torch.einsum("bhpn,bn->bhp", h, c_t.to(torch.float32))
     y = y + xh * p["d_skip"][:, None]
     y = y.reshape(b, di).to(x.dtype)

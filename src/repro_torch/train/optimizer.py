@@ -10,9 +10,11 @@ weight decay inside the step; Adafactor keeps factored row/col second
 moments for every leaf of two or more dims and clips the update's RMS.
 States mirror the params tree (Adafactor's leaves are ``{"row", "col"}``
 or ``{"v"}`` dicts), so the checkpoint store walks them as the
-reference's pytrees.  ``step`` is an int or a 0-d tensor; the schedule
-runs on the host, the bias corrections as float32 scalars, as jax
-computes them.
+reference's pytrees.  ``step`` is an int or a 0-d tensor.  The schedule
+and the bias corrections are float32 tensor ops on the step tensor's
+device (the CPU for an int), in the reference's order: nothing is read
+back to the host, so a step runs under ``FakeTensorMode`` and never waits
+on the card.
 """
 from __future__ import annotations
 
@@ -48,14 +50,15 @@ class Schedule:
     decay_steps: int = 10000
     min_ratio: float = 0.1
 
-    def __call__(self, step) -> float:
-        step = float(step)
-        warm = min(1.0, (step + 1) / max(self.warmup_steps, 1))
+    def __call__(self, step) -> torch.Tensor:
+        """The learning rate at ``step``, a float32 0-d tensor."""
+        step = _step_f32(step)
+        warm = torch.clamp((step + 1) / max(self.warmup_steps, 1), max=1.0)
         if not self.decay_steps:
             return self.peak_lr * warm
-        frac = min(max((step - self.warmup_steps)
-                       / max(self.decay_steps - self.warmup_steps, 1), 0.0), 1.0)
-        cos = 0.5 * (1 + math.cos(math.pi * frac))
+        frac = torch.clamp((step - self.warmup_steps)
+                           / max(self.decay_steps - self.warmup_steps, 1), 0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(math.pi * frac))
         return self.peak_lr * warm * (self.min_ratio + (1 - self.min_ratio) * cos)
 
 
@@ -70,9 +73,17 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    """A float32 0-d tensor of ``x`` on ``like``'s device."""
-    return torch.tensor(float(x), dtype=torch.float32, device=like.device)
+def _step_f32(step) -> torch.Tensor:
+    """``step`` (an int or a 0-d tensor) as a float32 0-d tensor on its
+    device, read by no host."""
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.float32)
+    return torch.tensor(step, dtype=torch.float32)
+
+
+def _pow_f32(base: float, t: torch.Tensor) -> torch.Tensor:
+    """``base ** t`` in float32, as jnp raises a weak float to a float32."""
+    return torch.full((), base, dtype=torch.float32, device=t.device) ** t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,9 +103,9 @@ class AdamW:
         """(new params, new state, {"lr", "gnorm"}) after one step at ``step``."""
         grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
         lr = self.schedule(step)
-        t = _f32(float(step) + 1.0, gnorm)
-        bc1 = 1 - _f32(self.b1, gnorm) ** t
-        bc2 = 1 - _f32(self.b2, gnorm) ** t
+        t = _step_f32(step) + 1.0
+        bc1 = 1 - _pow_f32(self.b1, t)
+        bc2 = 1 - _pow_f32(self.b2, t)
 
         m2 = tree_map(lambda g, m: self.b1 * m + (1 - self.b1) * g.to(torch.float32),
                       grads, state["m"])
@@ -127,7 +138,7 @@ class Adafactor:
     def update(self, grads, state, params, step):
         """(new params, new state, {"lr"}) after one step at ``step``."""
         lr = self.schedule(step)
-        t = _f32(float(step) + 1.0, tree_leaves(params)[0])
+        t = _step_f32(step) + 1.0
         beta = 1.0 - t ** (-self.decay)
 
         def factors(g, f):

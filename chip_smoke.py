@@ -34,27 +34,33 @@ Phases (any failure raises, and the script exits non-zero):
    mask (the main path's form) at its seven main-path shapes
    (``PACK_RING_SHAPES``) with its sum per main-path call beside the
    bound, and unmasked at the stem's (64, 0) and (21, 13); then the LM
-   path's shapes, read from its two plans (``lm_shape_launches``): the
-   dense adder (beaver_and in both forms, ks_mask, ks_combine, ks_step at
-   every level's shift) at every width of either plan (64, 22, 16) over
-   every word count (the 2 streams' merged E / 32), pack_ring (masked) at
-   each (k, m, E), unpack at each sign plane, ring_matmul at its 4 shapes
-   (``LM_RING_MATMUL_SHAPES``) and ring_matmul_ss (the secret x secret ring
-   matmul) at each product, each kernel's sum per LM call beside its bound;
-   ring_matmul_ss also at 512 tokens (QK^T, A@V and their Beaver
-   combines) and at K = 16 512, past its 4096 split
-   (``RING_MATMUL_SS_OTHER_SHAPES``), with 36 x ``torch._int_mm`` as
-   a yardstick where that takes the shape;
+   paths' shapes, read from their plans (``lm_shape_launches``: the short
+   path's two, the long path's two): the dense adder (beaver_and in both
+   forms, ks_mask, ks_combine, ks_step at every level's shift) at each
+   plan's widths (64, 22, 16) over each of its word counts (the streams'
+   merged E / 32: 64 and 46 464 on the short path, 131 072 and 1 486 848
+   on the long one), pack_ring (masked) at each (k, m, E), unpack at each
+   sign plane, ring_matmul at each projection and the lm_head (M = 2
+   parties x the tokens: 16 and 1 024) and ring_matmul_ss (the secret x
+   secret ring matmul) at each product, in the form its M picks (the large
+   ``wgmma`` form at the long path's QK^T, A@V and their Beaver combines,
+   one launch of it counted), each kernel's sum per LM call beside its
+   bound; ring_matmul_ss also at K = 16 512, past its 4096 split
+   (``RING_MATMUL_SS_OTHER_SHAPES``), with 36 x ``torch._int_mm`` as a
+   yardstick where that takes the shape.  A function whose one call takes
+   more than ``LONG_CALL_MS`` is timed over fewer trials and repeats, and
+   a plain version slower than ``SLOW_PLAIN_MS`` by one warm call;
 4. main path: full-width ResNet-18 (widths 64-128-256-512, 32x32 input,
    10 classes, seeded random weights at the reference's init scales), 4
    requests as sibling streams through ``api.compile`` and
    ``PrivateModel.__call__``, under four plans: exact, reduced ((k, m) =
    (21, 13) on every ReLU group but the last, which is culled), and the
    same two with the MSB-cone-pruned adder (``cone=True``).  Per plan:
-   offline, the session's triple pool for 1 + ``ONLINE_CALLS`` calls
-   (``CONE_ONLINE_CALLS`` for the cone plans)
-   (``Session.offline``, 4 streams) is generated before any timer (its
-   wall and device bytes printed); then each call runs twice on the same
+   offline, the session's triple pool for one call (``Session.offline``,
+   4 streams; until PR 30 one call's triples for each of the 1 +
+   ``ONLINE_CALLS`` calls) is generated before any timer (its wall and
+   device bytes printed) and rolled back before every call, each call
+   with its own request key; then each call runs twice on the same
    key and triples (the pool rolled back between them): on the generator
    loop (``HB_ROUND_LOOP=python``) and on the captured replay (``scan``,
    one CUDA graph per stream signature); one untimed warm-up pair (the
@@ -67,8 +73,7 @@ Phases (any failure raises, and the script exits non-zero):
    often as their levels say (``adder_launches``: the cone adder one
    cone_step per round).  Each replay must give the eager call's shares,
    launch nothing from the host, hold in its graph the eager call's
-   launches, and leave the previous replay's result as it was (a cone
-   plan, with one timed replay, takes one more, untimed, for that).  Every
+   launches, and leave the previous replay's result as it was.  Every
    call's fused rounds and bytes must equal ``plan.schedule(streams=4)``;
    the exact plans' revealed logits must match the plaintext forward
    within the stated tolerance.  Then, per plan, the replay's input refill
@@ -84,9 +89,10 @@ Phases (any failure raises, and the script exits non-zero):
    as sibling streams through ``api.compile`` and ``PrivateModel.__call__``,
    under two plans: exact (every ReLU group (64, 0)) and reduced ((22, 0)
    on the attention-score groups, (22, 6) on the PWL groups).  Per plan:
-   the ReLU triple pool from ``Session.offline`` before any timer (product
-   triples stay inline, as in the reference); one untimed warm-up call,
-   then ``ONLINE_CALLS`` timed calls on the generator loop (a plan with
+   one untimed warm-up call, then ``ONLINE_CALLS`` timed calls, each after
+   its own ReLU triple pool from ``Session.offline(requests=1)`` made
+   before the timer (product triples stay inline, as in the reference),
+   on the generator loop (a plan with
    Beaver opens never runs on the captured replay); every call's rounds
    and bytes equal to ``plan.schedule(streams=2)`` and to ``LM_SCHEDULE``,
    exactly the path's kernels (``PATH_KERNELS``) as often as its plan
@@ -98,7 +104,18 @@ Phases (any failure raises, and the script exits non-zero):
    ReLU calls at full width (one per (k, m, n) of either plan:
    ``gmw.relu_many`` on the 2 streams) must launch exactly the ReLU's
    kernels and equal the same call on the CPU bit for bit
-   (``lm_relu_phase``: the reduced plan's logits are only reported);
+   (``lm_relu_phase``: the reduced plan's logits are only reported); then
+   the long LM path (``lm_long``, ``lm_long_setups``): the same model and
+   plans, one request of ``LM_LONG_SEQ`` = 512 tokens, the exact plan at
+   depth 1 and the reduced one at depth 2 (``LM_LONG_LAYERS``: an exact
+   call's ReLU triples take 37.3 GB a layer), through the same calls and
+   checks, each pool freed before the next is made: every call's rounds
+   and bytes equal to ``plan.schedule(streams=1)`` and ``LM_SCHEDULE``,
+   every kernel launched as often as the plan says, ring_matmul_ss every
+   time in its large form (``ops.ring_matmul_ss.large``), the exact plan's
+   logits within the short path's tolerance, scan == python; each plan's
+   pool bytes, offline seconds per call, peak allocated memory, and one
+   call under torch.profiler (busy share, top device ops);
 6. ragged merge: ``gmw.relu_many`` on 4 sibling streams of 8209 elements
    (not a multiple of 32, so their triples merge at the bit level, through
    unpack and pack), dense at (64, 0) and with the cone at (21, 13), each
@@ -350,6 +367,8 @@ PATH_KERNELS = {"exact": _RELU | {"ring_matmul"} | _DENSE,
                 "reduced-cone": _RELU | {"ring_matmul"} | _CONE,
                 "lm-exact": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
                 "lm-reduced": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
+                "lm-long-exact": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
+                "lm-long-reduced": _RELU | {"ring_matmul", "ring_matmul_ss"} | _DENSE,
                 "lm-relu": _RELU | _DENSE,
                 "search": _RELU | {"ring_matmul"} | _DENSE,
                 "ragged-merge": _RELU | {"pack"} | _DENSE,
@@ -365,13 +384,11 @@ TRACE_KERNELS["pack_ring"] = "pack_kernel"      # one template serves both
 SHAPE_KERNELS = ("beaver_and", "ks_mask", "ks_step", "ks_combine", "ks_level",
                  "cone_step", "pack", "pack_ring", "unpack", "ring_matmul",
                  "ring_matmul_ss")
-# timed online calls per plan and loop, after one warm-up call; the pool
-# holds triples for all of them (1 + ONLINE_CALLS requests of 4 streams),
-# each request's served to the generator loop and to the replay in turn
-# (once 3, cut to make room for the deploy phase); the cone plans take
-# CONE_ONLINE_CALLS, their pools' time going to the mesh phase
+# timed online calls per plan and loop, after one warm-up call (once 3, cut
+# to make room for the deploy phase); a ResNet plan's pool holds one
+# call's triples, rolled back before each call (until PR 30 the pool held
+# every call's, and the cone plans took one timed call to save pool time)
 ONLINE_CALLS = 2
-CONE_ONLINE_CALLS = 1
 # exact-plan reveal vs plaintext: 16 fractional bits, +-1 LSB truncation
 # per linear layer, amplified through 20 layers
 ATOL, RTOL = 5e-2, 1e-2
@@ -380,19 +397,19 @@ ATOL, RTOL = 5e-2, 1e-2
 # requests of 8 tokens as sibling streams, and each plan's fused rounds and
 # bytes (``plan.schedule(streams=2)``, also checked against it)
 LM_ARCH, LM_LAYERS, LM_SEQ, LM_STREAMS = "qwen1.5-0.5b", 2, 8, 2
-LM_SCHEDULE = {"lm-exact": (46, 740753408), "lm-reduced": (40, 210809856)}
-# ring_matmul on the LM path, (M, K, N, launches per call): M = 2 parties x
-# 8 tokens; per layer and stream the q, k, v, o projections, up and gate,
-# down; the lm_head once per stream
-LM_RING_MATMUL_SHAPES = ((16, 1024, 1024, 16), (16, 1024, 2816, 8),
-                         (16, 2816, 1024, 4), (16, 1024, 151936, 2))
-# ring_matmul_ss's shapes (B, M, K, N) off the LM path: a longer attention
-# (512 tokens, 16 heads: QK^T, A@V, and their Beaver combines, the parties'
-# cells stacked and K doubled) and K past the kernel's 4096 split; its LM
-# shapes and launches are read from the plans (``lm_shape_launches``)
-RING_MATMUL_SS_OTHER_SHAPES = ((16, 512, 64, 512), (16, 512, 512, 64),
-                               (32, 512, 128, 512), (32, 512, 1024, 64),
-                               (1, 64, 16512, 64))
+# The long LM path: one request of LM_LONG_SEQ tokens, the reduced plan at
+# depth 2 and the exact one at depth 1 (a 512-token exact call's ReLU
+# triples take about 37 GB a layer); each plan's rounds and bytes
+# (``plan.schedule(streams=1)``) below with the short path's
+LM_LONG_SEQ = 512
+LM_LONG_LAYERS = {"lm-long-exact": 1, "lm-long-reduced": 2}
+LM_SCHEDULE = {"lm-exact": (46, 740753408), "lm-reduced": (40, 210809856),
+               "lm-long-exact": (23, 12909019136),
+               "lm-long-reduced": (40, 7598505984)}
+# ring_matmul_ss's shape (B, M, K, N) off the LM paths: K past the kernel's
+# 4096 split; its LM shapes and launches are read from the plans
+# (``lm_shape_launches``)
+RING_MATMUL_SS_OTHER_SHAPES = ((1, 64, 16512, 64),)
 
 
 def nvidia_smi() -> str:
@@ -452,9 +469,24 @@ def eager_ms(fn, trials: int = 7, reps: int = 20) -> float:
     return statistics.median(_event_ms(run, trials)) / reps
 
 
+def _card_generator(gen) -> torch.Generator:
+    """A generator on the card seeded from the host generator ``gen``: the
+    kernels' inputs are drawn there (the long LM path's hundreds of
+    millions of words took seconds each on the host)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen))
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
 def words(gen, *shape) -> torch.Tensor:
-    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
-                         dtype=torch.int64).to(torch.int32).cuda()
+    """Random int32 words of ``shape`` on the card."""
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=_card_generator(gen),
+                         dtype=torch.int32, device="cuda")
+
+
+def ring_values(gen, *shape) -> torch.Tensor:
+    """Random int64 ring values of ``shape`` on the card."""
+    return torch.randint(-2 ** 63, 2 ** 63 - 1, shape, generator=_card_generator(gen),
+                         dtype=torch.int64, device="cuda")
 
 
 def max_abs_err(got, want) -> float:
@@ -469,14 +501,43 @@ def max_abs_err(got, want) -> float:
     return err
 
 
+# timed_record's trials x reps for a function whose one warm eager call
+# takes more than LONG_CALL_MS (the long LM path's shapes), where 7 x 10
+# would take seconds; a plain version slower than SLOW_PLAIN_MS is timed by
+# that one warm call alone
+LONG_CALL_MS, LONG_TRIALS, LONG_REPS = 1.0, 3, 2
+SLOW_PLAIN_MS = 50.0
+
+
+def _once_ms(fn):
+    """(result, ms) of one eager ``fn()``, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _device_ms_for(fn, flush, once_ms: float):
+    """``device_ms(fn, flush)``, with fewer trials and reps for a long call."""
+    if once_ms > LONG_CALL_MS:
+        return device_ms(fn, flush, LONG_TRIALS, LONG_REPS)
+    return device_ms(fn, flush)
+
+
 def timed_record(into, flush, name, source, replaces, fn, plain, bytes_moved,
                  ops_s=0.0, shape="", path="exact"):
     """Check a kernel equal to its plain version, time both, append the
     record to ``into`` and return it."""
     err = max_abs_err(fn(), plain())
-    ms, hot_ms = device_ms(fn, flush)
-    plain_ms, _ = device_ms(plain, flush)
-    call_ms = eager_ms(fn)
+    once = _once_ms(fn)[1]
+    ms, hot_ms = _device_ms_for(fn, flush, once)
+    plain_once = _once_ms(plain)[1]
+    plain_ms = (plain_once if plain_once > SLOW_PLAIN_MS
+                else _device_ms_for(plain, flush, plain_once)[0])
+    call_ms = eager_ms(fn, *((LONG_TRIALS, LONG_REPS) if once > LONG_CALL_MS else ()))
     bytes_s = bytes_moved / HBM_BYTES_PER_S
     bound_s = max(bytes_s, ops_s)
     into.append({"name": name, "route": "cuda", "source": source,
@@ -579,8 +640,10 @@ def int_mm_ms(m: int, k: int, n: int, gen, planes: int = ISSUED_PLANE_PRODUCTS,
     shape; None where it does not.  The port never calls it."""
     if m <= 16 or k % 8 or n % 8:
         return None
-    a = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
-    b = torch.randint(-128, 128, (n, k), generator=gen, dtype=torch.int8).cuda().t()
+    a = torch.randint(-128, 128, (m, k), generator=_card_generator(gen),
+                      dtype=torch.int8, device="cuda")
+    b = torch.randint(-128, 128, (n, k), generator=_card_generator(gen),
+                      dtype=torch.int8, device="cuda").t()
     try:
         return planes * batch * _graph_ms(lambda: torch._int_mm(a, b), 10, 7) / 10
     except RuntimeError as err:
@@ -588,24 +651,22 @@ def int_mm_ms(m: int, k: int, n: int, gen, planes: int = ISSUED_PLANE_PRODUCTS,
         return None
 
 
-def ring_matmul_phase(record, gen) -> list:
-    """ring_matmul at the 12 main-path shapes and the 4 requests' stem convs
-    stacked (M x 4), full-range x and w (w's extremes -2^31 and 2^31 - 1,
-    x's bytes 0x00, 0x80 and 0xFF among them); returns the records."""
+def ring_matmul_phase(record, gen, lm_shapes=()) -> list:
+    """ring_matmul at the 12 main-path shapes, the 4 requests' stem convs
+    stacked (M x 4) and the LM paths' ``lm_shapes`` {(M, K, N): path},
+    full-range x and w (w's extremes -2^31 and 2^31 - 1, x's bytes 0x00,
+    0x80 and 0xFF among them); returns the records (the LM ones keyed
+    ``lm_shape``)."""
     from repro_torch.kernels import ops, ref
 
     out = []
-    lm_shapes = tuple((m, k, n, 0) for m, k, n, _ in LM_RING_MATMUL_SHAPES)
     for m, k, n, per_call in (RING_MATMUL_SHAPES + ((STREAMS * 2048, 576, 64, 0),)
-                              + lm_shapes):
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (m, k), generator=gen,
-                          dtype=torch.int64)
+                              + tuple(s + (0,) for s in lm_shapes)):
+        x = ring_values(gen, m, k)
         x[0, :3] = torch.tensor([0, -1, -0x7F7F7F7F7F7F7F80])[:k]
-        wt = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
-                           dtype=torch.int64).to(torch.int32)
+        wt = words(gen, k, n)
         wt.view(-1)[:4] = torch.tensor([-2 ** 31, 2 ** 31 - 1, 0, -1],
                                        dtype=torch.int32)
-        x, wt = x.cuda(), wt.cuda()
         bytes_s, ops_s = ring_matmul_bound_s(m, k, n)
         row = record("ring_matmul", "src/repro_torch/csrc/ring_matmul.cu",
                      "src/repro/kernels/ring_matmul.py:88",
@@ -613,8 +674,8 @@ def ring_matmul_phase(record, gen) -> list:
                      bytes_s * HBM_BYTES_PER_S, ops_s=ops_s,
                      shape=f"M={m} K={k} N={n}")
         row["per_call"] = per_call
-        if (m, k, n, per_call) in lm_shapes:
-            row["path"], row["lm_shape"] = "lm-exact", (m, k, n)
+        if (m, k, n) in lm_shapes and not per_call:
+            row["path"], row["lm_shape"] = lm_shapes[(m, k, n)], (m, k, n)
         row["int_mm_x30_ms"] = int_mm_ms(m, k, n, gen)
         if row["int_mm_x30_ms"] is not None:
             print(f"  yardstick: 30 x torch._int_mm at M={m} K={k} N={n}: "
@@ -641,28 +702,36 @@ def ring_matmul_ss_bound_s(b: int, m: int, k: int, n: int):
 
 
 def ring_matmul_ss_phase(record, gen, lm_shapes) -> list:
-    """ring_matmul_ss at the LM path's ``lm_shapes`` (B, M, K, N) and at
-    ``RING_MATMUL_SS_OTHER_SHAPES`` against its plain version
+    """ring_matmul_ss at the LM paths' ``lm_shapes`` {(B, M, K, N): path}
+    and at ``RING_MATMUL_SS_OTHER_SHAPES`` against its plain version
     (``torch.equal``), full-range values (bytes 0x00, 0x80, 0xFF among
-    them); returns the records (the LM ones keyed ``lm_shape``)."""
+    them), each in the form its M picks (``ops.ss_form``, in the record as
+    ``form``; one launch of that form per call, counted); returns the
+    records (the LM ones keyed ``lm_shape``)."""
     from repro_torch.kernels import ops, ref
 
     out = []
     for b, m, k, n in tuple(lm_shapes) + RING_MATMUL_SS_OTHER_SHAPES:
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, m, k), generator=gen,
-                          dtype=torch.int64)
-        y = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, k, n), generator=gen,
-                          dtype=torch.int64)
+        x, y = ring_values(gen, b, m, k), ring_values(gen, b, k, n)
         x.view(-1)[:3] = torch.tensor([0, -1, -0x7F7F7F7F7F7F7F80])
         y.view(-1)[:3] = torch.tensor([-1, 0, -2 ** 63])
-        x, y = x.cuda(), y.cuda()
+        form = ops.ss_form(m)
+        ops.reset_launches()
+        ops.ring_matmul_ss(x, y)
+        large = getattr(ops.ring_matmul_ss, "large", None)   # None: an older tree
+        launched = ops.launch_counts()["ring_matmul_ss"]
+        if launched != 1 or large not in (None, int(form == "large")):
+            raise AssertionError(f"ring_matmul_ss at {(b, m, k, n)}: {launched} "
+                                 f"launches, {large} large, its M picks {form}")
         bytes_s, ops_s = ring_matmul_ss_bound_s(b, m, k, n)
         row = record("ring_matmul_ss", "src/repro_torch/csrc/ring_matmul_ss.cu",
                      "src/repro/core/ring_linalg.py:72 (matmul_ring, a jnp einsum; "
                      "not a Pallas function)",
                      lambda: ops.ring_matmul_ss(x, y), lambda: ref.ring_matmul_ss(x, y),
                      bytes_s * HBM_BYTES_PER_S, ops_s=ops_s,
-                     shape=f"B={b} M={m} K={k} N={n}", path="lm-exact")
+                     shape=f"B={b} M={m} K={k} N={n} {form}",
+                     path=lm_shapes.get((b, m, k, n), "lm-exact"))
+        row["form"] = form
         if (b, m, k, n) in lm_shapes:
             row["lm_shape"] = (b, m, k, n)
         row["int_mm_x36_ms"] = int_mm_ms(m, k, n, gen, SS_PLANE_PRODUCTS, b)
@@ -886,9 +955,10 @@ def adder_records(record, gen, w: int, n_words: int, shifts, into, path,
             shape=f"P={P} w={w} W={n_words} shift={shift}", key=(w, n_words, shift))
 
 
-def kernel_phase(lm_setup_):
+def kernel_phase(lm_setups):
     """Each kernel against its plain version at main-path shapes: ResNet's,
-    then the LM path's, read from ``lm_setup_``'s plans."""
+    then the LM paths', read from the plans of ``lm_setups`` (``lm_setup``'s
+    tuples: the short path's, the long path's)."""
     from repro_torch.core.schedule import n_levels
     from repro_torch.kernels import ops, ref
 
@@ -946,8 +1016,7 @@ def kernel_phase(lm_setup_):
     # stem's two shapes
     masked = []
     for k, m, e in PACK_RING_SHAPES:
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
-                          dtype=torch.int64).cuda()
+        x = ring_values(gen, P, e)
         r = words(gen, P, k - m, (e + 31) // 32)
         row = record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
                      "src/repro/kernels/bitpack.py:44",
@@ -962,8 +1031,7 @@ def kernel_phase(lm_setup_):
     sums = pack_ring_sums(masked)
     for row in masked:
         row["per_call_sums"] = sums
-    x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, n_el), generator=gen,
-                      dtype=torch.int64).cuda()
+    x = ring_values(gen, P, n_el)
     for (k, m), into in (((64, 0), rows), ((21, 13), extra)):
         record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
                "src/repro/kernels/bitpack.py:44",
@@ -1003,57 +1071,63 @@ def kernel_phase(lm_setup_):
                lambda: ops.pack(bits, 1), lambda: ref.pack(bits, 1),
                4 * rows_ * e + 4 * rows_ * ((e + 31) // 32),
                shape=f"R={rows_} E={e} w=1", into=into, path="ragged-merge")
+    # the LM paths' shapes, read from their plans (``lm_shape_launches``):
+    # the dense adder at each plan's widths over each of its word counts
+    # (W of the streams' merged E), ks_step at every level's shift;
+    # pack_ring (masked) at each (k, m, E); unpack at each sign plane;
+    # ring_matmul at each projection and the lm_head; ring_matmul_ss at
+    # each product (its short-path QK^T Beaver combine is the row of the
+    # kernels line); each per LM call beside its bound.  A shape's record
+    # takes the first plan that launches it as its path.
+    lm_counts = {name: lm_shape_launches(plan, setup)
+                 for setup in lm_setups for name, plan in setup[2].items()}
+
+    def lm_paths(kernel):
+        out = {}
+        for name, c in lm_counts.items():
+            for shape in c[kernel]:
+                out.setdefault(shape, name)
+        return out
+
     # every conv and fc: the stage-1 conv (16 launches per call) is the
     # row of the kernels line, the other shapes go with the extra records
     for row in ring_matmul_phase(lambda *a, **kw: record(*a, into=extra, **kw),
-                                 gen):
+                                 gen, lm_paths("ring_matmul")):
         if row["shape"] == "M=2048 K=576 N=64":
             extra.remove(row)
             rows.append(row)
-    # the LM path's shapes, read from its two plans (``lm_shape_launches``):
-    # the dense adder at every width of either plan over every word count
-    # (W of the 2 streams' merged E), ks_step at every level's shift;
-    # pack_ring (masked) at each (k, m, E); unpack at each sign plane;
-    # ring_matmul_ss at each product (its QK^T Beaver combine is the row
-    # of the kernels line); each per LM call beside its bound
-    cfg, _, lm_plans, _, _ = lm_setup_
-    lm_counts = {name: lm_shape_launches(plan, cfg) for name, plan in lm_plans.items()}
-
-    def lm_path(kernel, pick):
-        return next(name for name, c in lm_counts.items() if any(map(pick, c[kernel])))
-
     lm_rows = []
-    adder = {s for c in lm_counts.values() for s in c["ks_mask"]}
-    for w in sorted({w for w, _ in adder}, reverse=True):
-        for n_w in sorted({n_w for _, n_w in adder}):
-            adder_records(record, gen, w, n_w,
-                          tuple(1 << lvl for lvl in range(1, n_levels(w))), lm_rows,
-                          lm_path("ks_mask", lambda s: s[0] == w),
-                          shape_key="lm_shape")
-    for k, m, e in sorted({s for c in lm_counts.values() for s in c["pack_ring"]},
-                          reverse=True):
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
-                          dtype=torch.int64).cuda()
+    adder = {}
+    for name, c in lm_counts.items():
+        widths = {w for w, _ in c["ks_mask"]}
+        for n_w in sorted({n_w for _, n_w in c["ks_mask"]}):
+            for w in widths:
+                adder.setdefault((w, n_w), name)
+    for (w, n_w), name in sorted(adder.items(), key=lambda a: (-a[0][0], a[0][1])):
+        adder_records(record, gen, w, n_w,
+                      tuple(1 << lvl for lvl in range(1, n_levels(w))), lm_rows,
+                      name, shape_key="lm_shape")
+    for (k, m, e), name in sorted(lm_paths("pack_ring").items(), reverse=True):
+        x = ring_values(gen, P, e)
         r = words(gen, P, k - m, (e + 31) // 32)
         record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
                "src/repro/kernels/bitpack.py:44",
                lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
                8 * P * e + 8 * r.numel(), shape=f"P={P} E={e} k={k} m={m} masked",
-               into=lm_rows, path=lm_path("pack_ring", lambda s: s == (k, m, e)))
+               into=lm_rows, path=name)
         lm_rows[-1]["lm_shape"] = (k, m, e)
-    for n in sorted({n for c in lm_counts.values() for n in c["unpack"]}, reverse=True):
+        del x, r
+    for n, name in sorted(lm_paths("unpack").items(), reverse=True):
         packed = words(gen, P, 1, (n + 31) // 32)
         record("unpack", "src/repro_torch/csrc/bitpack.cu",
                "src/repro/kernels/bitpack.py:60",
                lambda: ops.unpack(packed, n), lambda: ref.unpack(packed, n),
                4 * packed.numel() + 4 * P * n,
-               shape=f"R={P} w=1 W={packed.shape[-1]} n={n}", into=lm_rows,
-               path=lm_path("unpack", lambda s: s == n))
+               shape=f"R={P} w=1 W={packed.shape[-1]} n={n}", into=lm_rows, path=name)
         lm_rows[-1]["lm_shape"] = n
-    ss_shapes = sorted({s for c in lm_counts.values() for s in c["ring_matmul_ss"]})
     for row in ring_matmul_ss_phase(lambda *a, **kw: record(*a, into=lm_rows, **kw),
-                                    gen, ss_shapes):
-        if row["shape"] == "B=32 M=8 K=128 N=8":
+                                    gen, dict(sorted(lm_paths("ring_matmul_ss").items()))):
+        if row.get("lm_shape") == (32, 8, 128, 8):
             lm_rows.remove(row)
             rows.append(row)
     extra += lm_rows
@@ -1136,7 +1210,7 @@ def _check_call(name, run, sched, want, errs):
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
     errs.append(float((got - want).abs().max()))
-    if name.startswith(("exact", "lm-exact")) and \
+    if name.startswith(("exact", "lm-exact", "lm-long-exact")) and \
             errs[-1] > ATOL + RTOL * float(want.abs().max()):
         raise AssertionError(f"{name} plan: max error {errs[-1]} vs plaintext")
 
@@ -1230,10 +1304,11 @@ def replay_census(name, census, launches):
 
 def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
                  profile=False, want_launches=None, keep_reveal=False):
-    """One plan's offline phase, then each online call twice, on the same
-    request key and the same triples (the provider rolled back between
-    them): on the generator loop (``HB_ROUND_LOOP=python``), then on the
-    captured replay (``scan``) where the tree has it.  The first pair warms
+    """One plan's offline phase (one call's triple pool, rolled back before
+    every call: each call has its own request key, the pool's triples are
+    the same), then each online call twice, on the same request key and
+    the same triples: on the generator loop (``HB_ROUND_LOOP=python``), then
+    on the captured replay (``scan``) where the tree has it.  The first pair warms
     up (the replay's first call runs the generator loop and captures the
     graph); ``calls`` timed pairs follow (host clock around work ended by
     ``torch.cuda.synchronize()``).  Every call: rounds and bytes equal to
@@ -1263,12 +1338,12 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
     session = api.Session(key=0, comm=cc, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    session.offline(prng.PRNGKey(7, "cuda"), plan, requests=requests,
-                    streams=STREAMS)
+    session.offline(prng.PRNGKey(7, "cuda"), plan, requests=1, streams=STREAMS)
     torch.cuda.synchronize()
     offline_s = time.perf_counter() - t0
     provider = session.provider
     pool_bytes = provider.device_bytes()
+    token = provider.checkpoint()
     model = api.compile(afn, params, cfg, plan, session)
     replay = hasattr(model, "replay_stats")
     enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), x) for i, x in enumerate(xs)]
@@ -1283,7 +1358,7 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
         want_adder["pack_ring"] = want_adder["pack_ring_masked"] = want_adder["unpack"]
     eager, replays, errs, held = [], [], [], None
     for i in range(requests):
-        token = provider.checkpoint()       # the last pair's is kept below
+        provider.rollback(token)            # every call on the one call's pool
         e = _call(model, enc, "python", keys[i], cc)
         _check_call(name, e, sched, want, errs)
         counts = e["counts"]
@@ -1325,24 +1400,11 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
                          "under the next replay")
         held = (r["outs"], [type(o)(o.data.clone(), o.frac_bits) for o in r["outs"]])
         replays.append(r)
-    if len(replays) == 1:
-        # one timed replay (CONE_ONLINE_CALLS): the held result's check
-        # takes one more, untimed, replay of the last call's triples
-        provider.rollback(token)
-        r = _call(model, enc, "scan", keys[-1], cc)
-        _check_call(name, r, sched, want, errs)
-        if any(r["counts"].values()):
-            raise AssertionError(f"{name}: a replay launched {r['counts']} from "
-                                 "the host")
-        _same_shares(name, r["outs"], eager[-1]["outs"], "replay shares differ from "
-                     "the eager call's")
-        _same_shares(name, held[0], held[1], "a held replay result changed under "
-                     "the next replay")
     os.environ["HB_ROUND_LOOP"] = "python"
     counts = eager[-1]["counts"]
     masked = counts.pop("pack_ring_masked")
-    out = {"offline_s": offline_s, "offline_s_per_call": offline_s / requests,
-           "pool_requests": requests, "pool_bytes": pool_bytes,
+    out = {"offline_s": offline_s, "offline_s_per_call": offline_s,
+           "pool_requests": 1, "pool_bytes": pool_bytes,
            "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
            "max_abs_err_vs_plaintext": max(errs), "launches": counts,
            "pack_ring_masked": masked}
@@ -1354,9 +1416,10 @@ def online_calls(name, plan, setup, calls=ONLINE_CALLS, expect=None,
             out[loop] = {"online_s": walls, "online_median_s": statistics.median(walls),
                          "online_min_s": min(walls), "online_max_s": max(walls)}
     ea = out["eager"]
-    print(f"main path {name}: offline {offline_s:.3f} s for {requests} calls "
-          f"({offline_s / requests:.3f} s per call, pool {pool_bytes} B on the "
-          f"device); online per call ({STREAMS} requests) on the generator loop: "
+    print(f"main path {name}: offline {offline_s:.3f} s for one call's pool "
+          f"({pool_bytes} B on the device, rolled back before each of the "
+          f"{requests} calls); online per call ({STREAMS} requests) on the "
+          f"generator loop: "
           f"median {ea['online_median_s']:.4f} s, min {ea['online_min_s']:.4f}, "
           f"max {ea['online_max_s']:.4f} over {calls} warm calls; "
           f"{sched.n_rounds} rounds, {sched.bytes_tx} B, launches {counts}, max "
@@ -1432,63 +1495,77 @@ def main_path_phase():
     runs, launches = {}, {}
     for name, plan in setup[2].items():
         runs[name] = online_calls(name, plan, setup, expect=PATH_KERNELS[name],
-                                  calls=CONE_ONLINE_CALLS if plan.cone else ONLINE_CALLS,
                                   profile=name == "exact")
         for k, v in runs[name]["launches"].items():
             launches.setdefault(k, {})[name] = v
     return runs, launches
 
 
-def lm_setup():
-    """Qwen1.5-0.5B at full width, ``LM_LAYERS`` layers, seeded random
-    float32 weights at the reference's init scales; its two plans, the
-    ``LM_STREAMS`` requests' hidden states and the plaintext twin's logits
-    (float32 on the card, TF32 off)."""
+def lm_setup(layers: int = LM_LAYERS, seq: int = LM_SEQ, streams: int = LM_STREAMS,
+             names=("lm-exact", "lm-reduced")):
+    """Qwen1.5-0.5B at full width, ``layers`` layers, seeded random float32
+    weights at the reference's init scales; the plans ``names`` (a name
+    ending in "exact": every ReLU group (64, 0); in "reduced": (22, 0) on the
+    attention-score groups, (22, 6) on the PWL groups), ``streams`` requests'
+    hidden states of ``seq`` tokens and the plaintext twin's logits (float32
+    on the card, TF32 off): ``(cfg, params, plans, hs, want)``."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.core.hummingbird import HBConfig, HBLayer
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=LM_LAYERS,
+    cfg = dataclasses.replace(configs.get(LM_ARCH), n_layers=layers,
                               dtype="float32")
     params = lm.init(cfg, torch.Generator(device="cuda").manual_seed(0))
-    plan = lm.trace(params, cfg, 1, LM_SEQ)
+    plan = lm.trace(params, cfg, 1, seq)
     reduced = plan.with_hb(HBConfig(
         tuple(HBLayer(k=22, m=0) if g % 2 == 0 else HBLayer(k=22, m=6)
               for g in range(plan.n_groups)), plan.group_elements))
+    plans = {n: reduced if n.endswith("reduced") else plan for n in names}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    hs = [torch.randn((1, LM_SEQ, cfg.d_model), generator=gen, device="cuda") * 0.5
-          for _ in range(LM_STREAMS)]
+    hs = [torch.randn((1, seq, cfg.d_model), generator=gen, device="cuda") * 0.5
+          for _ in range(streams)]
     with torch.no_grad():
         want = torch.cat([lm.mpc_reference(params, h, cfg) for h in hs])
-    return cfg, params, {"lm-exact": plan, "lm-reduced": reduced}, hs, want
+    return cfg, params, plans, hs, want
 
 
-def lm_shape_launches(plan, cfg, merged: bool = True) -> dict:
-    """Each kernel's launches per LM call by shape, read from the plan: per
-    ReLU call (the streams merged into one of E = ``LM_STREAMS`` x its
-    elements, W = ceil(E / 32) words; with ``merged`` False, as the serving
-    engine runs them, each stream on its own at E = its elements), one
-    masked pack_ring at (k, m, E),
-    one unpack of the sign plane at E and the dense adder's beaver_and,
-    ks_mask and ks_combine at (w, W) and ks_step at (w, W, 2^l) for each
-    level l > 0; ring_matmul per ``LM_RING_MATMUL_SHAPES``; per matmul open
-    and stream, ring_matmul_ss at (H, M, K, N) (the triple's C = A @ B) and
-    at (2H, M, 2K, N) (the Beaver combine [E | A_p] @ [B_p + [p = 0] F ;
-    F], the parties' cells stacked), (M, K, N) the product (QK^T or A@V)
-    whose H (MK + KN) elements the open carries."""
+def lm_long_setups():
+    """The long LM path's setups: one request of ``LM_LONG_SEQ`` tokens, each
+    plan at its own depth (``LM_LONG_LAYERS``)."""
+    return [lm_setup(layers, LM_LONG_SEQ, 1, (name,))
+            for name, layers in LM_LONG_LAYERS.items()]
+
+
+def lm_shape_launches(plan, setup, merged: bool = True) -> dict:
+    """Each kernel's launches per LM call by shape, read from the plan and
+    ``setup`` (its weights, its requests' count S and length T): per ReLU
+    call (the S streams merged into one of E = S x its elements, W =
+    ceil(E / 32) words; with ``merged`` False, as the serving engine runs
+    them, each stream on its own at E = its elements), one masked
+    pack_ring at (k, m, E), one unpack of the sign plane at E and the dense
+    adder's beaver_and, ks_mask and ks_combine at (w, W) and ks_step at (w,
+    W, 2^l) for each level l > 0; ring_matmul at (2T, K, N) per stream for
+    every layer's q, k, v, o projections, up, gate and down weights (K, N)
+    and the lm_head; per matmul open and stream, ring_matmul_ss at (H, M,
+    K, N) (the triple's C = A @ B) and at (2H, M, 2K, N) (the Beaver combine
+    [E | A_p] @ [B_p + [p = 0] F ; F], the parties' cells stacked), (M, K,
+    N) the product (QK^T or A@V) whose H (MK + KN) elements the open
+    carries."""
     from repro_torch.core.schedule import n_levels
 
+    cfg, params, _, hs, _ = setup
+    streams, seq = len(hs), hs[0].shape[1]
     out = {k: {} for k in SHAPE_KERNELS}
 
     def add(kernel, shape, n=1):
         out[kernel][shape] = out[kernel].get(shape, 0) + n
 
-    per = 1 if merged else LM_STREAMS
+    per = 1 if merged else streams
     for c in plan.calls:
         layer = plan.hb.layers[c.group]
-        e = LM_STREAMS * c.n_elements // per
+        e = streams * c.n_elements // per
         n_words = (e + 31) // 32
         add("pack_ring", (layer.k, layer.m, e), per)
         add("unpack", e, per)
@@ -1498,103 +1575,130 @@ def lm_shape_launches(plan, cfg, merged: bool = True) -> dict:
             add(k, (layer.width, n_words), per)
         for lvl in range(1, n_levels(layer.width)):
             add("ks_step", (layer.width, n_words, 1 << lvl), per)
-    for m, k, n, c in LM_RING_MATMUL_SHAPES:
-        add("ring_matmul", (m, k, n), c)
+    layers = params["layers"]
+    weights = [layers["attn"][p]["w"] for p in ("wq", "wk", "wv", "wo")]
+    weights += [layers["mlp"][p] for p in ("w_up", "w_gate", "w_down")
+                if p in layers["mlp"]]
+    for w in weights:                              # (layers, K, N)
+        add("ring_matmul", (2 * seq, w.shape[1], w.shape[2]), streams * w.shape[0])
+    add("ring_matmul", (2 * seq,) + tuple(params["lm_head"]["w"].shape), streams)
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     for o in plan.opens:
         if o.label != "matmul":
             continue
-        mkn = [p for p in ((LM_SEQ, dh, LM_SEQ), (LM_SEQ, LM_SEQ, dh))
+        mkn = [p for p in ((seq, dh, seq), (seq, seq, dh))
                if h * (p[0] * p[1] + p[1] * p[2]) == o.n_elements]
         if len(mkn) != 1:
             raise AssertionError(f"matmul open of {o.n_elements} elements is "
                                  f"neither QK^T nor A@V")
         m, k, n = mkn[0]
-        add("ring_matmul_ss", (h, m, k, n), LM_STREAMS)
-        add("ring_matmul_ss", (2 * h, m, 2 * k, n), LM_STREAMS)
+        add("ring_matmul_ss", (h, m, k, n), streams)
+        add("ring_matmul_ss", (2 * h, m, 2 * k, n), streams)
     return out
 
 
 def lm_online(name, plan, setup, calls=ONLINE_CALLS):
-    """One LM plan: the ReLU triple pool offline, one warm-up call, ``calls``
-    timed calls on the generator loop, each checked (rounds and bytes, the
-    path's launches, the exact plan's error); then the last call on
-    ``HB_ROUND_LOOP=scan`` (same key, pool rolled back: same shares, nothing
-    captured) and under the profiler."""
+    """One LM plan, one warm-up call and ``calls`` timed calls on the
+    generator loop, each after its own offline ReLU triple pool (made
+    before the timer, the previous call's freed first: the long path's
+    pool holds one call) and each checked (rounds and bytes, the path's
+    launches per kernel and ring_matmul_ss's large form, the exact plans'
+    error).  Then the last call again, its pool rolled back, with
+    ``HB_ROUND_LOOP=scan`` (same shares, nothing captured) and under the
+    profiler."""
     from repro_torch import api
     from repro_torch.core import comm as comm_lib, prng
+    from repro_torch.kernels import ops
 
     cfg, params, _, hs, want = setup
-    sched = plan.schedule(streams=LM_STREAMS)
+    streams, seq = len(hs), hs[0].shape[1]
+    sched = plan.schedule(streams=streams)
     if (sched.n_rounds, sched.bytes_tx) != LM_SCHEDULE[name]:
         raise AssertionError(f"{name}: schedule {sched.n_rounds} rounds / "
                              f"{sched.bytes_tx} B, expected {LM_SCHEDULE[name]}")
     cc = comm_lib.CoalescingComm(comm_lib.SimComm())
     requests = 1 + calls
     session = api.Session(key=0, comm=cc, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    session.offline(prng.PRNGKey(7, "cuda"), plan, requests=requests,
-                    streams=LM_STREAMS)
-    torch.cuda.synchronize()
-    offline_s = time.perf_counter() - t0
-    provider = session.provider
-    pool_bytes = provider.device_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     model = api.compile(None, params, cfg, plan, session)
     enc = [model.encrypt(prng.PRNGKey(100 + i, "cuda"), h) for i, h in enumerate(hs)]
     keys = [prng.PRNGKey(1000 + i, "cuda") for i in range(requests)]
-    expect = {k: sum(v.values()) for k, v in lm_shape_launches(plan, cfg).items()}
+    shapes = lm_shape_launches(plan, setup)
+    expect = {k: sum(v.values()) for k, v in shapes.items()}
+    large = sum(c for (_, m, _, _), c in shapes["ring_matmul_ss"].items()
+                if ops.ss_form(m) == "large")
     limit = ATOL + RTOL * float(want.abs().max())
-    runs, errs = [], []
+    runs, errs, offline_s = [], [], []
     for i in range(requests):
-        token = provider.checkpoint()
+        session.provider = None             # the previous call's pool freed first
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.offline(prng.PRNGKey(7 + i, "cuda"), plan, requests=1,
+                        streams=streams)
+        torch.cuda.synchronize()
+        offline_s.append(time.perf_counter() - t0)
+        token = session.provider.checkpoint()
         run = _call(model, enc, "python", keys[i], cc)
+        run["ss_large"] = ops.ring_matmul_ss.large
         _check_call(name, run, sched, want, errs)
         counts = dict(run["counts"])
         masked = counts.pop("pack_ring_masked")
         launched = {k for k, v in counts.items() if v}
         if launched != PATH_KERNELS[name] or masked != counts["pack_ring"] or \
-                any(counts[k] != v for k, v in expect.items()):
+                any(counts[k] != v for k, v in expect.items()) or \
+                run["ss_large"] != large:
             raise AssertionError(f"{name}: launched {counts} ({masked} pack_ring "
-                                 f"masked), its path runs {expect}")
+                                 f"masked, {run['ss_large']} ring_matmul_ss large), "
+                                 f"its path runs {expect} ({large} large)")
+        if runs:
+            runs[-1].pop("outs")            # only the last call's shares are kept
         if i:
             runs.append(run)
     walls = [r["wall"] for r in runs]
     last, eager = keys[-1], runs[-1]
-    provider.rollback(token)
+    pool_bytes = session.provider.device_bytes()
+    session.provider.rollback(token)
     scan = _call(model, enc, "scan", last, cc)
     _same_shares(name, scan["outs"], eager["outs"], "HB_ROUND_LOOP=scan gives other "
                  "shares than python")
     if model.replay_stats(enc) is not None or scan["counts"] != eager["counts"]:
         raise AssertionError(f"{name}: a plan with opens was captured or launched "
                              f"{scan['counts']} under scan")
-    provider.rollback(token)
+    del scan, eager["outs"]
+    session.provider.rollback(token)
     os.environ["HB_ROUND_LOOP"] = "python"
     prof = _profiled(lambda: model(enc, key=last))
     os.environ.pop("HB_ROUND_LOOP", None)
+    peak = torch.cuda.max_memory_allocated()
+    session.provider = None
     counts = dict(eager["counts"])
     counts.pop("pack_ring_masked")
-    out = {"offline_s": offline_s, "offline_s_per_call": offline_s / requests,
-           "pool_requests": requests, "pool_bytes": pool_bytes,
-           "rounds": sched.n_rounds, "bytes": sched.bytes_tx,
+    out = {"offline_s": offline_s, "offline_median_s": statistics.median(offline_s),
+           "pool_requests": 1, "pool_bytes": pool_bytes, "rounds": sched.n_rounds,
+           "bytes": sched.bytes_tx, "layers": cfg.n_layers, "seq": seq,
+           "streams": streams,
            "max_abs_err_vs_plaintext": max(errs), "err_limit": limit,
            "max_abs_logit": float(want.abs().max()), "launches": counts,
+           "ring_matmul_ss_large": eager["ss_large"],
            "online_s": walls, "online_median_s": statistics.median(walls),
            "online_min_s": min(walls), "online_max_s": max(walls),
+           "resident_bytes": resident, "peak_bytes": peak,
            "scan_equals_python": True, "profiled": prof}
-    print(f"LM path {name} ({LM_ARCH}, {LM_LAYERS} layers, {LM_STREAMS} requests of "
-          f"{LM_SEQ} tokens): offline {offline_s:.3f} s for {requests} calls "
-          f"({offline_s / requests:.3f} s per call, pool {pool_bytes} B on the "
-          f"device); online per call on the generator loop: median "
-          f"{out['online_median_s']:.4f} s, min {out['online_min_s']:.4f}, max "
-          f"{out['online_max_s']:.4f} over {calls} warm calls; {sched.n_rounds} "
-          f"rounds, {sched.bytes_tx} B; launches {counts}; max |reveal - "
+    print(f"LM path {name} ({LM_ARCH}, {cfg.n_layers} layers, {streams} requests of "
+          f"{seq} tokens): one pool of {pool_bytes} B per call, made in "
+          f"{', '.join(f'{t:.3f}' for t in offline_s)} s; online per call on the "
+          f"generator loop: median {out['online_median_s']:.4f} s, min "
+          f"{out['online_min_s']:.4f}, max {out['online_max_s']:.4f} over {calls} "
+          f"warm calls; {sched.n_rounds} rounds, {sched.bytes_tx} B; launches "
+          f"{counts}, ring_matmul_ss {eager['ss_large']} large; max |reveal - "
           f"plaintext| {max(errs):.4g} (limit {limit:.4g}, max |logit| "
-          f"{out['max_abs_logit']:.4g}); scan == python; one call under the "
-          f"profiler: {prof['device_ops']} device ops busy "
-          f"{prof['device_busy_s']:.4f} s of a {prof['span_s']:.4f} s trace = "
-          f"{100 * prof['device_busy_share']:.1f}%, most device time "
-          f"{prof['top_device_ops_us']}", flush=True)
+          f"{out['max_abs_logit']:.4g}); peak {peak} B allocated ({resident} B "
+          f"resident before); scan == python; one call under the profiler: "
+          f"{prof['device_ops']} device ops busy {prof['device_busy_s']:.4f} s of a "
+          f"{prof['span_s']:.4f} s trace = {100 * prof['device_busy_share']:.1f}%, "
+          f"most device time {prof['top_device_ops_us']}", flush=True)
     return out
 
 
@@ -1606,6 +1710,20 @@ def lm_path_phase(setup):
         runs[name] = lm_online(name, plan, setup)
         for k, v in runs[name]["launches"].items():
             launches.setdefault(k, {})[name] = v
+    return runs, launches
+
+
+def lm_long_phase(setups):
+    """The long LM path (``lm_long_setups``): one request of ``LM_LONG_SEQ``
+    tokens, the exact plan at depth 1 and the reduced one at depth 2, each
+    call after its own offline pool (``lm_online``); returns the runs and
+    each kernel's launches per path."""
+    runs, launches = {}, {}
+    for setup in setups:
+        for name, plan in setup[2].items():
+            runs[name] = lm_online(name, plan, setup)
+            for k, v in runs[name]["launches"].items():
+                launches.setdefault(k, {})[name] = v
     return runs, launches
 
 
@@ -1920,8 +2038,7 @@ def search_kernel_phase(by_shape: dict, path: str = "search") -> list:
                       tuple(1 << lvl for lvl in range(1, n_levels(w))), rows,
                       path, shape_key=key)
     for k, m, e in sorted(by_shape["pack_ring"], reverse=True):
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
-                          dtype=torch.int64).cuda()
+        x = ring_values(gen, P, e)
         r = words(gen, P, k - m, (e + 31) // 32)
         record("pack_ring", "src/repro_torch/csrc/bitpack.cu",
                "src/repro/kernels/bitpack.py:44",
@@ -2374,7 +2491,7 @@ def serve_lm_phase(lm_setup_):
                              f"{sched.bytes_tx}, expected {LM_SCHEDULE['lm-exact'][0]} "
                              "rounds")
     per = {k: sum(v.values()) for k, v in
-           lm_shape_launches(plan, cfg, merged=False).items()}
+           lm_shape_launches(plan, lm_setup_, merged=False).items()}
     counts = rec["counts"]
     launched = {k for k, v in counts.items() if v and k != "pack_ring_masked"}
     if launched != PATH_KERNELS["lm-exact"] or \
@@ -3253,8 +3370,7 @@ def party_kernel_rows(shapes: dict, path: str, rm_label: str = "one party") -> t
                                           c2, sel, g4, a3, b3, shift),
                       96 * P * w * n_words + 4 * P, t and shift == shifts[0])
     for k, m, e in sorted(shapes["pack_ring"], reverse=True):
-        x = torch.randint(-2 ** 63, 2 ** 63 - 1, (P, e), generator=gen,
-                          dtype=torch.int64).cuda()
+        x = ring_values(gen, P, e)
         r = words(gen, P, k - m, (e + 31) // 32)
         check("pack_ring", f"P=1 E={e} k={k} m={m} masked",
               lambda: ops.pack_ring(x, k, m, mask=r), lambda: ref.pack_ring(x, k, m, r),
@@ -4487,7 +4603,8 @@ def main() -> None:
     print(f"build: {_phase('build', build.build_all):.1f} s", flush=True)
 
     lm = _phase("lm-setup", lm_setup)
-    rows, extra = _phase("kernels", kernel_phase, lm)
+    lm_long = _phase("lm-long-setup", lm_long_setups)
+    rows, extra = _phase("kernels", kernel_phase, [lm] + lm_long)
     sass = sass_census()
     runs, launches = _phase("main-path", main_path_phase)
     per_call = sum(c for *_, c in RING_MATMUL_SHAPES)
@@ -4496,8 +4613,13 @@ def main() -> None:
                              f"times, its shape table counts {per_call}")
     lm_runs, lm_path_launches = _phase("lm-path", lm_path_phase, lm)
     lm_relu = _phase("lm-relu", lm_relu_phase, lm)
+    torch.cuda.empty_cache()
+    lm_long_runs, lm_long_launches = _phase("lm-long", lm_long_phase, lm_long)
+    del lm_long
+    torch.cuda.empty_cache()
     ragged, ragged_launches = _phase("ragged-merge", ragged_merge_phase)
-    for k, by_path in list(ragged_launches.items()) + list(lm_path_launches.items()):
+    for k, by_path in (list(ragged_launches.items()) + list(lm_path_launches.items())
+                       + list(lm_long_launches.items())):
         launches.setdefault(k, {}).update(by_path)
     merge = _phase("merge", merge_phase, torch.empty(64 * 2 ** 20, dtype=torch.int32,
                                                      device="cuda").zero_)
@@ -4545,6 +4667,7 @@ def main() -> None:
         json.dump({"nvidia_smi": smi, "device": device, "kernels": rows,
                    "kernels_other_shapes": extra, "ring_matmul_sass": sass,
                    "main_path": runs, "lm_path": lm_runs, "lm_relu": lm_relu,
+                   "lm_long": lm_long_runs,
                    "ragged_merge": ragged,
                    "merge": merge,
                    "stem_breakdown": breakdown, "search": search,

@@ -111,9 +111,18 @@ def gen_relu_triples(key: torch.Tensor, n_elements: int, w: int,
                            for k, pos in zip(level_keys, level_sets))
     else:
         bin_init = gen_bin(k1, (w, W), n_parties)
-        levels = [gen_bin(k, (2 * w, W), n_parties) for k in level_keys]
-        bin_levels = BinTriple(*(torch.stack([getattr(t, f) for t in levels])
-                                 for f in ("a", "b", "c")))
+        # (L, P, 2w, W), each level written in as it is drawn: a stack of
+        # the drawn levels would hold them twice (55 GB at an exact
+        # 512-token PWL group)
+        bin_levels = None
+        for i, k in enumerate(level_keys):
+            t = gen_bin(k, (2 * w, W), n_parties)
+            if bin_levels is None:
+                bin_levels = BinTriple(*(t.a.new_empty((len(level_keys),) + t.a.shape)
+                                         for _ in range(3)))
+            for f in ("a", "b", "c"):
+                getattr(bin_levels, f)[i].copy_(getattr(t, f))
+            del t
     return ReluTriples(bin_init, bin_levels,
                        gen_arith(k3, (n_elements,), n_parties),
                        gen_arith(k4, (n_elements,), n_parties))

@@ -110,15 +110,41 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2])
 
 
+# a draw of more words than this, by device type, is hashed in chunks of
+# the flat counter index (each word depends on its index alone, so the
+# words are the same): on the card the hash's int64 temporaries then stay
+# at 128 MB each, where a whole draw's would be as large as the draw
+# (0.76 GB for 95 M words); on the host a chunk whose temporaries stay in
+# cache hashes faster
+BITS_CHUNK = {"cpu": 1 << 18, "cuda": 1 << 24}
+
+
+def _bits(key: torch.Tensor, shape: Shape, dtype: torch.dtype) -> torch.Tensor:
+    shape = _shape(shape)
+    n = math.prod(shape)
+    chunk = BITS_CHUNK.get(key.device.type, n)
+    if n <= chunk:
+        b1, b2 = _hash_counters(key, shape)
+        return (b1 ^ b2).to(dtype)
+    if key.shape != (2,):
+        raise ValueError(f"expected one key of shape (2,), got {tuple(key.shape)}")
+    out = torch.empty(n, dtype=dtype, device=key.device)
+    for start in range(0, n, chunk):
+        flat = torch.arange(start, min(n, start + chunk), dtype=torch.int64,
+                            device=key.device)
+        b1, b2 = threefry2x32(key[0], key[1], flat >> 32, flat & MASK32)
+        out[start:start + flat.numel()] = b1 ^ b2
+    return out.reshape(shape)
+
+
 def bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2^32)."""
-    b1, b2 = _hash_counters(key, _shape(shape))
-    return b1 ^ b2
+    return _bits(key, shape, torch.int64)
 
 
 def bits_words(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``bits`` as int32 bit patterns: the packed-word dtype of the port."""
-    return bits(key, shape).to(torch.int32)
+    return _bits(key, shape, torch.int32)
 
 
 def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,

@@ -39,7 +39,8 @@ the card (design notes in the CUDA sources):
   ``core/ring_linalg.py:72`` ``matmul_ring`` (secret x secret, mod 2^64);
   max(bytes, 8 per x, y and output value, over 3.35 TB/s; 36 u8 byte-plane
   products over the 1979 TOP/s int8 tensor cores).  Two forms: 64 x 64
-  block tiles from M = 64 on, 16 x 8 warp tiles below (``ss_form``).
+  block tiles from M = 64 on, 16 x 8 warp tiles below (``ss_form``);
+  ``ring_matmul_ss.large`` counts the large form's launches.
 - ``pack`` and ``pack_ring``: ``kernels/bitpack.py:44`` ``pack_pallas``;
   bytes, each value read once (4 or 8 bytes) and 4 per word written;
   ``pack_ring``'s masked form (the A2B round's ``packed ^ mask``) also
@@ -526,6 +527,8 @@ def ring_matmul_ss(x: torch.Tensor, y: torch.Tensor,
         _launch("hb_ring_matmul_ss", x.data_ptr(), y.data_ptr(), out.data_ptr(),
                 b, m, k, n, SS_FORMS.index(form))
         _count(ring_matmul_ss)
+        if form == "large":
+            _count(ring_matmul_ss, "large")
     return out
 
 
@@ -534,12 +537,14 @@ KERNELS = (beaver_and, ks_mask, ks_combine, ks_step, ks_level, cone_step,
 for _k in KERNELS:
     _k.launches = 0
 pack_ring.masked = 0
+ring_matmul_ss.large = 0
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
     pack_ring.masked = 0
+    ring_matmul_ss.large = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 
 # The most K one int32 shift accumulator of the ring_matmul kernel takes:
@@ -115,6 +117,12 @@ def cone_step(sent, d_other, e_other, a, b, c, sel, g, p, level=None,
     return torch.stack([lhs ^ a_next, rhs ^ b_next], dim=1)
 
 
+# ``pack`` spreads each value over w int64 bit lanes; a (..., w, W, 32)
+# tensor of more elements than this is made a block of words at a time
+# (the long LM path's w = 64 planes of 47.6 M values would take 45 GB)
+PACK_CHUNK = 1 << 26
+
+
 def pack(v: torch.Tensor, w: int, shift: int = 0) -> torch.Tensor:
     """(..., E) values -> (..., w, W) int32 words, W = ceil(E/32): bit t of
     word (i, j) is bit ``shift + i`` of value 32j + t (tail bits zero).
@@ -126,8 +134,15 @@ def pack(v: torch.Tensor, w: int, shift: int = 0) -> torch.Tensor:
     planes = torch.arange(shift, shift + w, dtype=torch.int64,
                           device=v.device).reshape(w, 1, 1)
     lanes = torch.arange(32, dtype=torch.int64, device=v.device)
-    bits = (grouped >> planes) & 1                          # (..., w, W, 32)
-    return (bits << lanes).sum(dim=-1).to(torch.int32)
+    step = max(1, PACK_CHUNK // max(1, 32 * w * math.prod(v.shape[:-1])))
+    if step >= n_words:
+        bits = (grouped >> planes) & 1                      # (..., w, W, 32)
+        return (bits << lanes).sum(dim=-1).to(torch.int32)
+    out = torch.empty(v.shape[:-1] + (w, n_words), dtype=torch.int32, device=v.device)
+    for j in range(0, n_words, step):
+        bits = (grouped[..., j:j + step, :] >> planes) & 1
+        out[..., j:j + step] = (bits << lanes).sum(dim=-1)
+    return out
 
 
 def pack_ring(x: torch.Tensor, k: int, m: int,

@@ -7,9 +7,9 @@
 - straggler watchdog: per-step wall-clock EWMA; a step slower than
   ``straggler_factor`` x the EWMA is logged and counted
   (``runtime/watchdog.py``);
-- elastic restore: the latest checkpoint onto a given device.  The
-  reference also re-shards onto another mesh (``runtime/sharding.py``);
-  that form is not ported.
+- elastic restore: the latest checkpoint onto a given device, or onto a
+  ``DeviceMesh`` (possibly another than the one that wrote it), each
+  leaf placed by ``runtime/sharding.py``'s rules.
 
 ``LoopConfig.seed`` seeds the ``torch.Generator`` of the init when the
 caller passes neither a state nor a generator.
@@ -119,12 +119,19 @@ def abstract_state(cfg: ArchConfig, optimizer) -> train_lib.TrainState:
 
 
 def elastic_restore(ckpt_dir: str, cfg: ArchConfig, optimizer,
-                    device: Device = None, step: Optional[int] = None):
+                    device: Device = None, step: Optional[int] = None,
+                    mesh=None, mode: str = "train"):
     """The latest (or ``step``'s) checkpoint of ``cfg``'s training state
-    restored onto ``device`` (default the GPU), whatever device wrote it;
-    the step counter on the host.  Every leaf's shape and dtype must be
-    the ones ``init_state`` gives.  Returns (state, manifest)."""
-    device = resolve_device(device)
+    restored onto ``device`` (default the GPU, or with ``mesh`` the mesh's
+    device type), whatever device or mesh wrote it; the step counter on
+    the host.  Every leaf's shape and dtype must be the ones ``init_state``
+    gives.  With ``mesh`` (a ``DeviceMesh``) every params and
+    optimizer-state leaf becomes a DTensor placed by
+    ``sharding.param_shardings`` for ``mode`` (each rank reads the whole
+    leaf and keeps its own block); the host step is the same on every
+    rank, replicated.  Returns (state, manifest)."""
+    device = resolve_device(mesh.device_type if mesh is not None and device is None
+                            else device)
     template = abstract_state(cfg, optimizer)
     on = lambda dev: (lambda t: torch.empty(0, dtype=t.dtype, device=dev))
     target = train_lib.TrainState(
@@ -138,4 +145,11 @@ def elastic_restore(ckpt_dir: str, cfg: ArchConfig, optimizer,
         if tuple(w.shape) != tuple(g.shape) or w.dtype != g.dtype:
             raise ValueError(f"checkpoint leaf {path}: {tuple(g.shape)} {g.dtype}, "
                              f"the config's {tuple(w.shape)} {w.dtype}")
+    if mesh is not None:
+        from ..runtime import sharding
+
+        state = train_lib.TrainState(
+            params=sharding.param_shardings(state.params, mesh, mode, cfg),
+            opt_state=sharding.param_shardings(state.opt_state, mesh, mode, cfg),
+            step=state.step)
     return state, manifest

@@ -616,6 +616,49 @@ def test_cuda_lm_smoke_equals_cpu():
             assert torch.equal(a.data, b.data.cpu())
 
 
+@pytest.mark.cuda
+def test_cuda_lm_long_sequence_large_form_and_chunked_draws_equal_cpu(monkeypatch):
+    """One block of the smoke LM on one request of 64 tokens (M = 64: the
+    products take ring_matmul_ss's large form, as the 512-token path's do),
+    exact and per-site reduced, with the card's threefry cut to chunks of
+    4096 words (as the long path's draws are cut at 2^24): every share
+    equals the CPU run's, the rounds and bytes the schedule's, and all four
+    ring_matmul_ss launches are large."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.core import comm, prng
+    from repro_torch.models import lm
+
+    monkeypatch.setitem(prng.BITS_CHUNK, "cuda", 4096)
+    seq = 64
+    cfg = dataclasses.replace(configs.get("qwen1.5-0.5b-smoke"), n_layers=1)
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    plan = lm.trace(params, cfg, 1, seq)
+    h = torch.randn((1, seq, cfg.d_model), generator=torch.Generator().manual_seed(14)) * 0.5
+    for kms in (None, [(22, 0), (22, 6)]):
+        run_plan = plan if kms is None else plan.with_hb(api.HBConfig(
+            tuple(api.HBLayer(k=k, m=m) for k, m in kms), plan.group_elements))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            cc = comm.CoalescingComm()
+            session = api.Session(key=0, comm=cc, device=dev)
+            session.offline(prng.PRNGKey(7, dev), run_plan)
+            model = api.compile(None, lm.params_from_jax(_to_numpy(params), dev),
+                                cfg, run_plan, session)
+            x = model.encrypt(prng.PRNGKey(2, dev), h)
+            ops.reset_launches()
+            outs[dev] = model([x], key=prng.PRNGKey(3, dev))
+            sched = run_plan.schedule(streams=1)
+            assert (cc.n_rounds, cc.bytes_tx) == (sched.n_rounds, sched.bytes_tx)
+        torch.cuda.synchronize()
+        assert (ops.ring_matmul_ss.launches, ops.ring_matmul_ss.large) == (4, 4)
+        for a, b in zip(outs["cpu"], outs["cuda"]):
+            assert torch.equal(a.data, b.data.cpu())
+
+
 def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}

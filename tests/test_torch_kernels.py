@@ -277,6 +277,21 @@ def test_pack_unpack_plain_vs_ref_and_pallas(w):
         np.testing.assert_array_equal(got.numpy(), _i32(want))
 
 
+@pytest.mark.parametrize("chunk", [1, 5 * 32 * 8, 1 << 26])
+def test_pack_in_blocks_of_words_equals_ref(chunk, monkeypatch):
+    """The plain pack made a block of words at a time (``PACK_CHUNK``
+    elements of its (..., w, W, 32) bit lanes): the reference's words, a
+    ragged last block and tail bits included."""
+    monkeypatch.setattr(tref, "PACK_CHUNK", chunk)
+    rng = np.random.default_rng(11)
+    v = _words(rng, 2 * 1000).reshape(2, 1000) & np.uint32(0xFF)
+    got = tref.pack(_t(v), 8)
+    assert got.shape == (2, 8, 32) and got.dtype == torch.int32
+    for row in range(2):                     # the tail padded with zero bits
+        want = jref.pack(jnp.asarray(np.pad(v[row], (0, 24))), 8)
+        np.testing.assert_array_equal(got[row].numpy(), _i32(want))
+
+
 def test_shares_packing_routes_through_the_wrappers():
     """pack_bits / unpack_bits are the pack and unpack kernels with one bit
     per plane row; ragged E and a leading level axis, as triple merges

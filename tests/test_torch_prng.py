@@ -58,6 +58,20 @@ def test_bits(shape):
                                   want.view(np.int32))
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 64, 1000])
+def test_bits_in_chunks_of_the_counter(chunk, monkeypatch):
+    """A draw longer than its device's ``BITS_CHUNK`` is hashed chunk by
+    chunk of the flat counter: the same words, ragged last chunk included."""
+    monkeypatch.setitem(prng.BITS_CHUNK, "cpu", chunk)
+    shape = (3, 5, 67)
+    want = np.asarray(jax.random.bits(jax.random.PRNGKey(11), shape, dtype=np.uint32))
+    got = prng.bits(prng.PRNGKey(11, "cpu"), shape)
+    assert got.dtype == torch.int64 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(_np(got), want.astype(np.uint64))
+    np.testing.assert_array_equal(prng.bits_words(prng.PRNGKey(11, "cpu"), shape).numpy(),
+                                  want.view(np.int32))
+
+
 @pytest.mark.parametrize("shape", [(7,), (3, 5, 7), (4096,)])
 @pytest.mark.parametrize("lo_hi", [(0.0, 1.0), (-2.5, 4.0), (-1.3, 0.7)])
 def test_uniform_floats(shape, lo_hi):

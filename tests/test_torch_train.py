@@ -423,10 +423,10 @@ def test_restart_equals_uninterrupted(small_cfg, tmp_path):
 
 
 def test_elastic_restore_onto_device(small_cfg, tmp_path):
-    """The latest checkpoint onto a named device (the reference re-shards
-    onto a mesh; the port's form takes a device), every leaf of the
-    config's shape and dtype, the step on the host; a checkpoint of
-    another config refuses."""
+    """The latest checkpoint onto a named device (the port's form beside
+    the reference's mesh form, below), every leaf of the config's shape
+    and dtype, the step on the host; a checkpoint of another config
+    refuses."""
     pipe = TokenPipeline(vocab=small_cfg.vocab, seq_len=32, batch=4)
     lc = loop_lib.LoopConfig(total_steps=4, ckpt_every=2, ckpt_dir=str(tmp_path),
                              async_ckpt=False)
@@ -440,6 +440,62 @@ def test_elastic_restore_onto_device(small_cfg, tmp_path):
     wider = dataclasses.replace(small_cfg, d_model=2 * small_cfg.d_model)
     with pytest.raises(ValueError, match="checkpoint leaf"):
         loop_lib.elastic_restore(str(tmp_path), wider, topt.AdamW(), device="cpu")
+
+
+@pytest.mark.parametrize("group", ["gloo-1", "fake-2x2"])
+def test_elastic_restore_on_named_mesh(small_cfg, tmp_path, group):
+    """tests/test_fault_tolerance.py's mesh restore: the latest checkpoint
+    onto a (data, model) ``DeviceMesh``, every params and optimizer-state
+    leaf a DTensor whose placements are ``sharding.placements`` of the
+    rules' spec for "train", its values bit-equal to the device restore's
+    (on one gloo rank the whole leaf; on rank 0 of a fake 2 x 2 group,
+    where the rules split leaves over both axes, rank 0's block)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import sharding
+
+    pipe = TokenPipeline(vocab=small_cfg.vocab, seq_len=32, batch=4)
+    lc = loop_lib.LoopConfig(total_steps=4, ckpt_every=2, ckpt_dir=str(tmp_path),
+                             async_ckpt=False)
+    loop_lib.run(small_cfg, pipe, lc, device="cpu")
+    opt = topt.AdamW()
+    want, _ = loop_lib.elastic_restore(str(tmp_path), small_cfg, opt, device="cpu")
+    if group == "gloo-1":
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        shape = (1, 1)
+    else:
+        mesh_lib.fake_process_group(4)
+        shape = (2, 2)
+    try:
+        mesh = mesh_lib.make_device_mesh(shape, ("data", "model"), device="cpu")
+        state, manifest = loop_lib.elastic_restore(str(tmp_path), small_cfg, opt,
+                                                   mesh=mesh)
+        assert int(state.step) == 4 and manifest["step"] == 4
+        split = 0
+        for tree in ("params", "opt_state"):
+            got = dict(sharding.tree_paths(getattr(state, tree)))
+            ref = dict(sharding.tree_paths(getattr(want, tree)))
+            assert got.keys() == ref.keys()
+            for path, dt in got.items():
+                whole = ref[path]
+                spec = sharding.param_spec(path, tuple(whole.shape), mesh, "train",
+                                           small_cfg)
+                assert isinstance(dt, DTensor) and dt.device_mesh is mesh
+                assert tuple(dt.placements) == sharding.placements(spec, mesh)
+                assert dt.shape == whole.shape and dt.dtype == whole.dtype
+                block = whole
+                for i, p in enumerate(dt.placements):
+                    if isinstance(p, Shard):
+                        split += 1
+                        block = block.narrow(p.dim, 0, block.shape[p.dim] // shape[i])
+                if group == "gloo-1":
+                    assert torch.equal(dt.full_tensor(), whole)
+                assert torch.equal(dt.to_local(), block)
+        assert split > 0 if group == "fake-2x2" else split == 0
+    finally:
+        dist.destroy_process_group()
 
 
 def test_straggler_watchdog(small_cfg):

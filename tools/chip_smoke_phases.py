@@ -26,7 +26,7 @@ PHASES = ("lm_setup", "lm_long_setups", "kernel_phase", "main_path_phase",
           "lm_path_phase", "lm_relu_phase", "lm_long_phase", "ragged_merge_phase",
           "merge_phase", "stem_breakdown_phase", "search_phase", "serve_phase",
           "serve_lm_phase", "frontend_phase", "seed_oracle_phase",
-          "deploy_phase", "deploy_kernel_phase", "mesh_phase", "analysis_phase",
+          "deploy_phase", "deploy_kernel_phase", "examples_phase", "mesh_phase", "analysis_phase",
           "mesh_kernel_phase", "zoo_phase", "train_phase", "dryrun_phase")
 
 
